@@ -1,0 +1,17 @@
+from repro_torch.runtime.dispatcher import (AdmissionFull,  # noqa: F401
+                                            DeadlineExceeded, Dispatcher,
+                                            DispatcherCodecs, NodeError,
+                                            ReplayStats, RetryPolicy)
+from repro_torch.runtime.engine import (EngineReport,  # noqa: F401
+                                        InferenceEngine)
+from repro_torch.runtime.topology import StageSpec, TopologySpec  # noqa: F401
+from repro_torch.runtime.transport import (Channel,  # noqa: F401
+                                           ChannelClosed, InprocTransport,
+                                           LinkTransport, TcpTransport,
+                                           Transport, get_transport,
+                                           register_transport,
+                                           register_transport_scheme)
+from repro_torch.runtime.wire import (BatchEnvelope, Envelope,  # noqa: F401
+                                      NodePlan, ReconfigMarker, RowExtent,
+                                      WireCodec, WireFormatError, WireRecord,
+                                      frame, unframe, unframe_compat)

@@ -1,0 +1,191 @@
+"""Slice A end to end on the CPU: ResNet50 cut into a 4-stage chain and
+served by the port's dispatcher -> compute nodes -> collector, held against
+the port's single-device ``apply`` and the JAX package's ``LayerGraph.apply``
+on the same weights.
+
+Every engine is built with ``device="cpu"``: the port's entry points run
+on CUDA unless asked otherwise.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import cnn as jcnn
+from repro_torch.kernels import block_quant as tbq
+from repro_torch.models import cnn as tcnn
+from repro_torch.runtime import (DispatcherCodecs, InferenceEngine,
+                                 TopologySpec, WireCodec)
+from tests._torch_weights import fan_in_params
+
+torch.set_num_threads(1)
+
+# the CNN parity bar (tests/test_torch_cnn.py): XLA and oneDNN convolutions
+TOL_REL = 2e-5
+# q8 through the chain: the input and each of the 4 stage outputs are
+# quantized once (5 passes, each within absmax/254 of its tensor); measured
+# 0.5-0.8% relative at the logits on this model, held to 5%
+Q8_REL = 0.05
+ZFP_REL = 0.15          # the reference's own bar (tests/test_runtime.py)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jg = jcnn.resnet50(batch=1, image=64, num_classes=10)
+    tg = tcnn.resnet50(batch=1, image=64, num_classes=10)
+    jparams = fan_in_params(jg, seed=0)
+    params = tcnn.params_from_jax(jparams, tg)
+    prep = tg.prepare(params, "cpu")
+    rng = np.random.default_rng(7)
+    xs = [rng.standard_normal((1, 64, 64, 3)).astype(np.float32)
+          for _ in range(8)]
+    single = [tg.apply(prep, torch.from_numpy(x)).numpy() for x in xs]
+    jax_out = [np.asarray(jg.apply(jparams, jnp.asarray(x))) for x in xs]
+    return tg, params, xs, single, jax_out
+
+
+def _codecs(serializer, compression="none"):
+    return DispatcherCodecs(data=WireCodec(serializer, compression,
+                                           zfp_rate=16),
+                            weights=WireCodec("raw", "none"))
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(1e-9, np.abs(b).max()))
+
+
+def test_raw_chain_with_live_scale_and_reconfigure(model):
+    """A replicated stage, a live scale() and a live reconfigure() while
+    requests are in flight; raw outputs equal single-device apply
+    (max_batch=1, so each request computes at batch 1 like the
+    single-device call) and the JAX package's outputs."""
+    tg, params, xs, single, jax_out = model
+    spec = TopologySpec.chain(tg, 4, strategy="balanced_latency",
+                              replicas=[1, 2, 1, 1])
+    eng = InferenceEngine(tg, spec, _codecs("raw"), max_batch=1,
+                          device="cpu")
+    try:
+        eng.configure(params)
+        eng.start()
+        futs = [eng.submit(x, client_id=i % 2) for i, x in enumerate(xs)]
+        scale_rec = eng.scale(2, 2)
+        futs += [eng.submit(x, client_id=2) for x in xs[:4]]
+        cuts = tuple(c + 3 for c in eng.dispatcher.partition.cuts)
+        re_rec = eng.dispatcher.reconfigure(cuts)
+        futs += [eng.submit(x, client_id=3) for x in xs[4:]]
+        outs = [f.result(timeout=300) for f in futs]
+        rep = eng.report()
+    finally:
+        eng.shutdown()
+    want = single + single[:4] + single[4:]
+    for o, w in zip(outs, want):
+        np.testing.assert_allclose(o, w, atol=1e-5, rtol=0)
+    for o, j in zip(outs[:8], jax_out):
+        assert np.abs(o - j).max() <= TOL_REL * np.abs(j).max() + 1e-6
+    assert scale_rec["changed"] and scale_rec["spawned"] == 1
+    assert re_rec["changed"] and re_rec["acknowledged"]
+    assert eng.dispatcher.partition.cuts == cuts
+    assert rep.replicas == (1, 2, 2, 1) and rep.epoch == 2
+    assert rep.num_nodes == 6 and rep.payload_mb > 0
+
+
+def test_raw_chain_batched_over_tcp(model):
+    """Continuous batching (max_batch 4) over real sockets: batches of 2-4
+    rows change oneDNN's blocking, so outputs match single-device apply to
+    the CNN bar rather than bit for bit."""
+    tg, params, xs, single, jax_out = model
+    spec = TopologySpec.chain(tg, 4, strategy="balanced_latency",
+                              replicas=[1, 1, 2, 1], transport="tcp")
+    eng = InferenceEngine(tg, spec, _codecs("raw"), max_batch=4,
+                          device="cpu")
+    try:
+        eng.configure(params)
+        eng.start()
+        futs = [eng.submit(x, client_id=i % 3) for i, x in enumerate(xs)]
+        outs = [f.result(timeout=300) for f in futs]
+    finally:
+        eng.shutdown()
+    for o, s, j in zip(outs, single, jax_out):
+        assert np.abs(o - s).max() <= TOL_REL * np.abs(s).max() + 1e-6
+        assert np.abs(o - j).max() <= TOL_REL * np.abs(j).max() + 1e-6
+
+
+@pytest.mark.parametrize("transport", ["inproc", "tcp"])
+def test_zfp_lz4_chain_within_reference_bar(model, transport):
+    tg, params, xs, single, _ = model
+    spec = TopologySpec.chain(tg, 4, strategy="balanced_latency",
+                              replicas=[1, 2, 1, 1], transport=transport)
+    eng = InferenceEngine(tg, spec, _codecs("zfp", "lz4"), max_batch=4,
+                          device="cpu")
+    try:
+        eng.configure(params)
+        outs, rep = eng.run(xs[:4])
+    finally:
+        eng.shutdown()
+    for o, s in zip(outs, single):
+        assert _rel(o, s) < ZFP_REL
+    assert rep.codec == "ZFP/LZ4"
+
+
+@pytest.mark.parametrize("transport", ["inproc", "tcp"])
+def test_q8_chain_runs_the_block_quant_path(model, transport):
+    tg, params, xs, single, jax_out = model
+    spec = TopologySpec.chain(tg, 4, strategy="balanced_latency",
+                              replicas=[1, 2, 1, 1], transport=transport)
+    eng = InferenceEngine(tg, spec, _codecs("q8"), max_batch=4,
+                          device="cpu")
+    tbq.reset_counts()
+    try:
+        eng.configure(params)
+        outs, rep = eng.run(xs[:6])
+    finally:
+        eng.shutdown()
+    for o, s, j in zip(outs, single, jax_out):
+        assert _rel(o, s) < Q8_REL and _rel(o, j) < Q8_REL
+    # the plain path ran on the CPU: one quantize and one dequantize per
+    # leaf per hop; no CUDA launch
+    assert tbq.plain_calls["quantize_blocks"] > 0
+    assert tbq.plain_calls["dequantize_blocks"] > 0
+    assert tbq.launches == {"quantize_blocks": 0, "dequantize_blocks": 0}
+    assert rep.codec == "Q8/Uncompressed"
+
+
+def test_precompile_warms_every_replica(model):
+    tg, params, xs, single, _ = model
+    eng = InferenceEngine(tg, TopologySpec.chain(tg, 2), _codecs("q8"),
+                          max_batch=2, device="cpu")
+    try:
+        eng.configure(params)
+        tbq.reset_counts()
+        eng.precompile()
+        warm = dict(tbq.plain_calls)
+        outs, _ = eng.run(xs[:1])
+    finally:
+        eng.shutdown()
+    assert warm["quantize_blocks"] > 0
+    assert _rel(outs[0], single[0]) < Q8_REL
+
+
+def test_generate_refuses_a_cnn_as_the_reference_does(model):
+    tg, params, xs, _, _ = model
+    eng = InferenceEngine(tg, 2, _codecs("raw"), device="cpu")
+    try:
+        eng.configure(params)
+        eng.start()
+        with pytest.raises(ValueError, match="not decode-capable"):
+            next(iter(eng.generate([1, 2, 3], 2)))
+    finally:
+        eng.shutdown()
+
+
+def test_unported_controller_and_default_device(model):
+    tg, _, _, _, _ = model
+    with pytest.raises(NotImplementedError, match="controller"):
+        InferenceEngine(tg, 2, device="cpu", controller=object())
+    if torch.cuda.is_available():
+        eng = InferenceEngine(tg, 2)
+        eng.shutdown()
+        assert eng.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            InferenceEngine(tg, 2)
