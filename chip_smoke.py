@@ -9,35 +9,51 @@ Phases, each printing JSON records on their own lines:
 2. the build of every CUDA source under ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), with its time and the
    assembler's register report;
-3. each kernel against its plain PyTorch version on the card, byte for
-   byte, at the wire shapes and on edge-case tiles; after the main path,
-   both are timed with CUDA events at those shapes, on the device (calls
-   captured in a CUDA graph and replayed) and per call from Python, with
-   inputs rotated through more than the 50 MB L2, beside the byte bound;
-4. the main path at full width: ResNet50 (224x224, 1000 classes, seeded
+3. each kernel against its plain PyTorch version on the card: block
+   quantization byte for byte at the wire shapes and on edge-case tiles
+   (the subnormal tiles also against the reference's pinned values),
+   decode attention within 1e-5 (f32) / 2e-2 (bf16) on the reference's
+   sweep, the decode path's shapes and an all-empty cache; after the
+   main paths, each kernel is timed with CUDA events at the path's
+   shapes, on the device (calls captured in a CUDA graph and replayed)
+   and per call from Python, with inputs rotated through more than the
+   50 MB L2, beside its byte bound, its plain version and, for decode
+   attention, ``scaled_dot_product_attention``;
+4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
    with one replicated stage, served by ``InferenceEngine(device="cuda")``
    with the raw, q8 and zfp/lz4 codecs over ``inproc`` and q8 over
    ``tcp``, each engine serving its requests twice (first and warm
    window); outputs are held against single-device ``apply`` on the card
    (TF32 off) and on the CPU, and the block-quant launch counters must
-   rise during the main path.
+   rise during it;
+5. slice C's path, decode serving at StarCoder2-3B's widths (30 layers,
+   d_model 3072, 24 query / 2 kv heads of 128, d_ff 12288, vocab 49152,
+   a 4096-slot KV cache, f32, seeded fan-in weights): 8 concurrent
+   ``generate()`` sessions (prompts of 128-512 tokens, 32 new tokens
+   each) through a 4-stage chain with stage 1 replicated twice, twice
+   (first window with a live ``scale()`` of stage 1, then a warm window);
+   every token must equal the port's single-device
+   ``pipeline_decode_reference`` on the card, the decode-attention kernel
+   must launch and its plain version must not run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phase 4 on the CPU at image 64 (no kernel
-build), to rehearse the control flow without a card; it never prints a
-result and exits 3.
+``--cpu-rehearsal`` runs phases 4 and 5 on the CPU at small sizes (no
+kernel build), to rehearse the control flow without a card; it never
+prints a result and exits 3.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -46,10 +62,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.core.graph import tree_flatten_with_path  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_quant as bq  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import cnn, lm_graph  # noqa: E402
 from repro_torch.runtime import (DispatcherCodecs, InferenceEngine,  # noqa: E402
                                  TopologySpec, WireCodec)
 
@@ -60,6 +80,27 @@ RAW_TOL_REL = 1e-4      # chain vs single-device on the card: batched cuDNN
 CPU_TOL_REL = 1e-3      # card vs CPU apply (different conv algorithms)
 Q8_REL = 0.05           # 5 quantize passes, each within absmax/254
 ZFP_REL = 0.15          # the reference's bar for ZFP-16 + LZ4
+DA_F32_ATOL = 1e-5      # decode attention kernel vs plain (f32)
+DA_BF16_ATOL = 2e-2     # the reference sweep's bar for bf16 inputs
+# decode attention shapes (B, H, kv, hd, C): the reference's sweep
+# (tests/test_kernels.py) and the decode path's at batch 1 and 8
+DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
+            (1, 16, 4, 80, 640)]
+DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
+# StarCoder2-3B (arXiv:2402.19173; src/repro/configs/starcoder2_3b.py) in
+# the reference's decode graph: a 4096-slot cache, its sliding window
+STARCODER2_3B = dict(vocab=49152, d_model=3072, n_layers=30, num_heads=24,
+                     kv_heads=2, head_dim=128, d_ff=12288, cache_len=4096)
+SESSIONS, NEW_TOKENS, PROMPT_LEN = 8, 32, (128, 512)
+# subnormal tiles [a, -a/2, 0.3a, 0...]: (a, q of the first 3, scale) as
+# the reference computes them (XLA reads subnormals as zero and flushes a
+# subnormal scale; a TPU has none)
+FLT_MIN = float(np.finfo(np.float32).tiny)
+SUBNORMAL_TABLE = [(1e-44, [0, 0, 0], 1.0), (FLT_MIN / 2, [0, 0, 0], 1.0),
+                   (FLT_MIN, [127, 0, 0], 0.0),
+                   (2 * FLT_MIN, [127, -127, 0], 0.0),
+                   (100 * FLT_MIN, [127, -127, 127], 0.0),
+                   (127 * FLT_MIN, [127, -64, 38], FLT_MIN)]
 
 
 def emit(**rec) -> None:
@@ -112,14 +153,35 @@ def _data(shape, seed) -> torch.Tensor:
 
 def _edge_tiles() -> torch.Tensor:
     """All-zero tile; exact .5 ties at scale 1.0; clip at ±127; a large
-    value beside tiny ones; a subnormal absmax whose scale underflows."""
-    x = np.zeros((40, 128), np.float32)
+    value beside tiny ones; a subnormal absmax; then one tile per row of
+    SUBNORMAL_TABLE (from row 40)."""
+    x = np.zeros((40 + 8 * len(SUBNORMAL_TABLE), 128), np.float32)
     x[8, 0] = 127.0
     x[8, 1:9] = [2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5, -1.5]
     x[16, :4] = [127.0, -127.0, 126.5, -126.5]
     x[24, 0], x[25, :3] = 1e6, [1e-3, -1e-3, 3e3]
     x[32, :3] = [1e-44, -1e-44, 5e-45]
+    for i, (a, _, _) in enumerate(SUBNORMAL_TABLE):
+        a = np.float32(a)
+        x[40 + 8 * i, :3] = [a, -a / np.float32(2), np.float32(0.3) * a]
     return torch.from_numpy(x)
+
+
+def _check_subnormal_table(q: torch.Tensor, s: torch.Tensor) -> None:
+    """The kernel's subnormal tiles hold the reference's values."""
+    q, s = q.cpu().numpy(), s.cpu().numpy()
+    for i, (a, want_q, want_s) in enumerate(SUBNORMAL_TABLE):
+        r = 40 + 8 * i
+        got_q = [int(v) for v in q[r, :3]]
+        rest = q[r:r + 8].copy()
+        rest[0, :3] = 0
+        ok = (got_q == want_q and not rest.any()
+              and s[r // 8, 0].tobytes() == np.float32(want_s).tobytes())
+        emit(phase="subnormal_tile", absmax=a, q=got_q,
+             scale=float(s[r // 8, 0]), want_q=want_q, want_scale=want_s,
+             identical_to_reference=bool(ok))
+        check(ok, f"subnormal tile a={a}: q {got_q} scale {s[r // 8, 0]} "
+                  f"!= reference {want_q} {want_s}")
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -151,6 +213,59 @@ def compare_kernels(dev) -> dict:
              max_abs_err_q=eq, max_abs_err_dq=ed)
         check(same_q, f"quantize kernel != plain version at {shape}")
         check(same_d, f"dequantize kernel != plain version at {shape}")
+    _check_subnormal_table(q, s)            # the last case: the edge tiles
+    return err
+
+
+def _da_inputs(B, H, kv, hd, C, seed, dev, dtype=torch.float32,
+               valid=None):
+    """Seeded decode-attention inputs on ``dev``.  Row b's cache holds
+    ``valid[b]`` filled slots (default: all but the last 50) at positions
+    0.., the rest empty (kpos -1); pos is the last filled position."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dtype) for s in ((B, 1, H, hd), (B, C, kv, hd),
+                                          (B, C, kv, hd)))
+    n = np.full(B, C - 50) if valid is None else np.asarray(valid)
+    kpos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    kpos[kpos >= n[:, None]] = -1
+    pos = np.maximum(n - 1, 0).astype(np.int32)
+    return (q, k, v, torch.from_numpy(kpos).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+def compare_decode_attention(dev) -> dict:
+    """Decode-attention kernel vs its plain version on the card, in f32 and
+    bf16, window None and 128: the reference's sweep (through
+    ``ops.decode_attention``, whose padding C=640 exercises), the decode
+    path's shapes with rows at different fill levels, and an all-empty
+    cache, which must stay finite.  Returns the largest error per dtype."""
+    err = {"f32": 0.0, "bf16": 0.0}
+    cases = [(s, None) for s in DA_SWEEP]
+    cases += [(s, [128 + 497 * b for b in range(s[0])]) for s in DA_PATH]
+    cases += [(DA_PATH[1], [0] * DA_PATH[1][0])]              # all empty
+    for i, ((B, H, kv, hd, C), valid) in enumerate(cases):
+        for dtype, name, tol in ((torch.float32, "f32", DA_F32_ATOL),
+                                 (torch.bfloat16, "bf16", DA_BF16_ATOL)):
+            q, k, v, kpos, pos = _da_inputs(B, H, kv, hd, C, i, dev, dtype,
+                                            valid)
+            for window in (None, 128):
+                scale = 1.0 / math.sqrt(hd)
+                out = ops.decode_attention(q, k, v, kpos, pos, window, scale)
+                torch.cuda.synchronize()
+                want = ref.decode_attention_ref(q, k, v, kpos, pos, window,
+                                                scale)
+                e = float((out.float() - want).abs().max().item())
+                finite = bool(torch.isfinite(out).all().item())
+                err[name] = max(err[name], e)
+                emit(phase="decode_attention_vs_plain",
+                     shape=[B, H, kv, hd, C], dtype=name, window=window,
+                     all_empty=valid is not None and not any(valid),
+                     max_abs_err=e, tol=tol, finite=finite)
+                check(finite and e <= tol,
+                      f"decode attention kernel vs plain at "
+                      f"{[B, H, kv, hd, C]} {name} window={window}: "
+                      f"err {e} (tol {tol}), finite={finite}")
     return err
 
 
@@ -245,7 +360,56 @@ def time_kernels(dev, shapes) -> dict:
     return res
 
 
-# -- phase 4: the main path --------------------------------------------------------
+def _da_bounds(B, H, kv, hd, C) -> dict:
+    """Least time for one f32 decode-attention call on a full cache: read
+    K, V, kpos, q (and pos) once, write out once; 4 flops per (row, slot,
+    element): q.k and p.v."""
+    nbytes = 4 * (2 * B * C * kv * hd + B * C + 2 * B * H * hd + B)
+    ops_ = 4 * B * H * C * hd
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def time_decode_attention(dev, B, H, kv, hd, C) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` (the
+    library yardstick, never called by the port) on a FULL f32 cache at
+    the decode path's shape, inputs rotated through more than the L2."""
+    scale = 1.0 / math.sqrt(hd)
+    per = 4 * (2 * B * C * kv * hd)
+    nbuf = max(2, -(-(128 << 20) // per))
+    sets = [_da_inputs(B, H, kv, hd, C, 100 + i, dev, valid=[C] * B)
+            for i in range(nbuf)]
+    kargs = [(q, k, v, kp, p, None, scale) for q, k, v, kp, p in sets]
+    # the library's layout: [B, heads, L, hd], mask [B, 1, 1, C]
+    largs = [(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+              v.transpose(1, 2).contiguous(), (kp >= 0)[:, None, None, :])
+             for q, k, v, kp, _ in sets]
+
+    def library(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_out = library(*largs[0]).transpose(1, 2)
+    want = ref.decode_attention_ref(*kargs[0])
+    lib_err = float((lib_out - want).abs().max().item())
+    rec = dict(shape=[B, H, kv, hd, C], kernel="decode_attention",
+               ms=_device_ms(da.decode_attention, kargs),
+               plain_ms=_device_ms(ref.decode_attention_ref, kargs),
+               library_ms=_device_ms(library, largs),
+               call_ms=_call_ms(da.decode_attention, kargs),
+               plain_call_ms=_call_ms(ref.decode_attention_ref, kargs),
+               library_call_ms=_call_ms(library, largs),
+               library_max_abs_err=lib_err, buffers=nbuf,
+               **_da_bounds(B, H, kv, hd, C))
+    rec["bandwidth_gb_s"] = rec["bytes"] / (rec["ms"] * 1e-3) / 1e9
+    emit(phase="kernel_time", **rec)
+    del sets, kargs, largs
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 4: slice A's path -------------------------------------------------------
 
 def fan_in_params(graph, seed: int) -> dict:
     """Seeded He-style weights in the reference's names and HWIO layout:
@@ -371,6 +535,284 @@ def main_path(device, image: int, classes: int, n_req: int, card: str
     return {"counts": counts, "shapes": wire_shapes(graph, spec)}
 
 
+# -- phase 5: slice C's path, decode serving ---------------------------------------
+
+def lm_params(graph, seed: int, device) -> dict:
+    """Seeded weights in the reference's names, drawn on ``device`` and
+    handed over as host numpy (what ``configure`` ships): ``w ~ N(0,
+    1/fan_in)``, norm scales 1, the embedding table ``~ N(0, 1)``, so the
+    logits are far from degenerate."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {}
+    for node in graph.nodes:
+        p: dict = {}
+        for path, spec in tree_flatten_with_path(node.param_spec):
+            if path[-1] == "scale":
+                a = np.ones(spec.shape, np.float32)
+            else:
+                t = torch.randn(spec.shape, generator=gen, device=device)
+                if path[-1] == "w":
+                    t *= 1.0 / math.sqrt(spec.shape[0])
+                a = t.cpu().numpy()
+            d = p
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = a
+        params[node.name] = p
+    return params
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _prefill(graph, prep, prompt, dev):
+    with torch.inference_mode():
+        acts = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        caches = {}
+        for node in graph.nodes:
+            if node.decode is not None:
+                acts, caches[node.name] = node.decode.prefill_fn(
+                    prep[node.name], acts)
+            else:
+                acts = node.fn(prep[node.name], acts)
+    return acts, caches
+
+
+def _step(graph, prep, caches: list, toks: list, pos: list, dev):
+    """One step of the whole graph over the sessions' stacked caches (the
+    stack is a copy: ``caches`` are left as they were)."""
+    with torch.inference_mode():
+        c = {n: {k: torch.cat([cc[n][k] for cc in caches]) for k in
+                 caches[0][n]} for n in caches[0]}
+        acts = torch.tensor([[t] for t in toks], dtype=torch.int32,
+                            device=dev)
+        pv = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for node in graph.nodes:
+            if node.decode is not None:
+                acts, c[node.name] = node.decode.step_fn(
+                    prep[node.name], c[node.name], acts, pv)
+            else:
+                acts = node.fn(prep[node.name], acts)
+    return acts
+
+
+def check_batch_invariance(graph, prep, prompts, dev) -> list[float]:
+    """One session's step alone (padded to ``decode_step_rows`` rows by
+    repeating it) against the same session as a row of a step of other
+    sessions: must be bit-identical (the chain batches steps across
+    sessions, the reference steps alone).  Also reports whether an
+    UNPADDED batch-1 step would have been.  Returns each prompt's prefill
+    time on the device (ms)."""
+    rows = graph.decode_step_rows
+    pre, prefill_ms = [], []
+    for p in prompts[:rows]:
+        _sync(dev)
+        t0 = time.perf_counter()
+        pre.append(_prefill(graph, prep, p, dev))
+        _sync(dev)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    first = [int(np.argmax(a[0, -1].cpu().numpy())) for a, _ in pre]
+    caches = [c for _, c in pre]
+    pos = [len(p) for p in prompts[:rows]]
+    del pre
+    i = min(3, rows - 1)
+    full = _step(graph, prep, caches, first, pos, dev)
+    alone = _step(graph, prep, [caches[i]] * rows, [first[i]] * rows,
+                  [pos[i]] * rows, dev)
+    single = _step(graph, prep, [caches[i]], [first[i]], [pos[i]], dev)
+    fixed = bool(torch.equal(full[i], alone[0]))
+    unpadded = bool(torch.equal(full[i], single[0]))
+    emit(phase="batch_invariance", rows=rows, fixed_rows_identical=fixed,
+         unpadded_batch1_identical=unpadded,
+         unpadded_max_abs_diff=float((full[i] - single[0]).abs().max()))
+    check(fixed, "a session's step differs between its own padded step "
+                 "and a step shared with other sessions")
+    return prefill_ms
+
+
+def _generate_all(eng, prompts, new_tokens, rescale) -> tuple[list, dict]:
+    """Run one generate() per prompt on its own thread; with ``rescale``,
+    drain and regrow stage 1 once every session has 2 tokens."""
+    n = len(prompts)
+    toks: list[list[int]] = [[] for _ in prompts]
+    stamps: list[list[float]] = [[] for _ in prompts]
+    starts = [0.0] * n
+    errs: list[BaseException] = []
+
+    def one(i):
+        starts[i] = time.perf_counter()
+        try:
+            for t in eng.generate(prompts[i], new_tokens, restart="always"):
+                stamps[i].append(time.perf_counter())
+                toks[i].append(t)
+        except BaseException as e:      # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    scale_s = None
+    if rescale:
+        deadline = time.monotonic() + 600
+        while not all(len(s) >= 2 for s in stamps) and not errs:
+            check(time.monotonic() < deadline, "sessions never reached 2 "
+                  f"tokens: {[len(s) for s in stamps]}")
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        eng.scale(1, 1)                  # drain: displaces pinned sessions
+        eng.scale(1, 2)                  # regrow: ships stage 1's weights
+        scale_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(900)
+    check(not any(t.is_alive() for t in threads), "generation hung")
+    if errs:
+        raise errs[0]
+    steps = [b - a for s in stamps for a, b in zip(s, s[1:])]
+    wall = max(s[-1] for s in stamps) - min(starts)
+    total = sum(len(t) for t in toks)
+    return toks, {
+        "tokens": total, "wall_s": wall, "tokens_per_s": total / wall,
+        "step_p50_ms": float(np.percentile(steps, 50) * 1e3),
+        "step_p99_ms": float(np.percentile(steps, 99) * 1e3),
+        "first_token_ms": [(s[0] - t0) * 1e3 for s, t0 in zip(stamps, starts)],
+        "live_scale_s": scale_s}
+
+
+def profile_window(eng, prompts, want, new_tokens, dev) -> None:
+    """A short third window under ``torch.profiler``: the device's busy
+    share (kernel time summed over the one stream / wall) and the kernels
+    that take it.  Launches here are not counted for the path."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs, rec = _generate_all(eng, prompts, new_tokens, rescale=False)
+        torch.cuda.synchronize(dev)
+    wall_us = (time.perf_counter() - t0) * 1e6
+    check(all(o == w[:new_tokens] for o, w in zip(outs, want)),
+          "profiled window: tokens differ from the reference")
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    emit(phase="decode_profile", tokens=rec["tokens"],
+         tokens_per_s=rec["tokens_per_s"], wall_s=wall_us / 1e6,
+         device_busy_s=busy / 1e6,
+         device_busy_share=busy / wall_us if rows else None,
+         device_kernels=sum(r[2] for r in rows),
+         top=[{"name": k[:80], "device_ms": dt / 1e3, "count": c}
+              for dt, k, c in rows[:10]])
+
+
+def decode_phase(dev, cfg: dict, prompt_len: tuple[int, int],
+                 new_tokens: int, card: str) -> dict:
+    """Slice C's path: decode serving through the 4-stage chain, held bit
+    for bit against the single-device reference on the same device."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = lm_graph.decode_lm_graph(use_kernel=True, **cfg)
+    n_params = sum(int(np.prod(spec.shape)) for node in graph.nodes
+                   for _, spec in tree_flatten_with_path(node.param_spec))
+    emit(phase="decode_setup", config=cfg, parameters=n_params,
+         weight_bytes=graph.total_param_bytes, sessions=SESSIONS,
+         new_tokens=new_tokens, prompt_len=list(prompt_len),
+         step_rows=graph.decode_step_rows, tf32="off (cudnn and matmul)")
+    t0 = time.perf_counter()
+    params = lm_params(graph, seed=0, device=dev)
+    weights_s = time.perf_counter() - t0
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg["vocab"], int(rng.integers(*prompt_len)))
+               .tolist() for _ in range(SESSIONS)]
+
+    # the single-device reference on the same device, then freed
+    t0 = time.perf_counter()
+    prep = graph.prepare(params, dev)
+    prefill_ms = check_batch_invariance(graph, prep, prompts, dev)
+    margins: list[float] = []
+    t1 = time.perf_counter()
+    want = [lm_graph.pipeline_decode_reference(graph, prep, p, new_tokens,
+                                               margins) for p in prompts]
+    ref_s = time.perf_counter() - t1
+    # one single-session step of all layers at the fixed rows, host clock:
+    # a whole decode of prompt 0 less its prefill-only decode, per step
+    t2 = time.perf_counter()
+    lm_graph.pipeline_decode_reference(graph, prep, prompts[0], 1)
+    t3 = time.perf_counter()
+    lm_graph.pipeline_decode_reference(graph, prep, prompts[0], new_tokens)
+    t4 = time.perf_counter()
+    emit(phase="decode_reference", weights_s=weights_s,
+         prepare_and_invariance_s=t1 - t0, reference_s=ref_s,
+         step_ms=((t4 - t3) - (t3 - t2)) / (new_tokens - 1) * 1e3,
+         prefill_ms=prefill_ms, prompt_lens=[len(p) for p in prompts],
+         min_top2_margin=min(margins), streams_distinct=len(
+             {tuple(t) for t in want}))
+    check(len({tuple(t) for t in want}) == len(prompts),
+          "different prompts gave identical token streams")
+    del prep
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    raw = WireCodec("raw", "none")
+    spec = TopologySpec.chain(graph, 4, replicas=[1, 2, 1, 1])
+    d, vocab = cfg["d_model"], cfg["vocab"]
+    hop_bytes = len(raw.encode_tree(
+        {graph.nodes[spec.stages[0].layers[1] - 1].name:
+         np.zeros((1, 1, d), np.float32)}, "data")[0])
+    tail_bytes = len(raw.encode_tree(
+        {"head": np.zeros((1, 1, vocab), np.float32)}, "data")[0])
+    eng = InferenceEngine(graph, spec, DispatcherCodecs(data=raw, weights=raw),
+                          max_batch=SESSIONS, device=dev)
+    try:
+        t0 = time.perf_counter()
+        eng.configure(params)
+        configure_s = time.perf_counter() - t0
+        del params
+        eng.start()
+        da.reset_counts()
+        for window in ("first", "warm"):
+            eng.reset_window()
+            outs, rec = _generate_all(eng, prompts, new_tokens,
+                                      rescale=window == "first")
+            rep = eng.report(samples=rec["tokens"], wall_s=rec["wall_s"])
+            same = [o == w for o, w in zip(outs, want)]
+            emit(phase="decode_serve", window=window, card=card,
+                 configure_s=configure_s, step_bytes_per_hop=hop_bytes,
+                 tail_bytes_per_step=tail_bytes,
+                 replicas=list(rep.replicas), cuts=list(rep.cuts),
+                 sessions_bit_identical=same, **rec)
+            # per replica: per-request seconds by stage, and one wave's
+            # compute (requests per wave x compute per request)
+            emit(phase="decode_stages", window=window, stages=[
+                dict({k: n[k] for k in ("stage", "replica", "requests",
+                                        "deserialize_s", "compute_s",
+                                        "serialize_s", "util_compute",
+                                        "batch_mean")},
+                     wave_compute_ms=n["compute_s"] * n["batch_mean"] * 1e3)
+                for n in rep.per_node])
+            check(all(same), f"{window} window: chain tokens differ from "
+                             f"the single-device reference: {same}")
+        counts, plain = dict(da.launches), dict(da.plain_calls)
+        if dev.type == "cuda":
+            profile_window(eng, prompts, want, max(4, new_tokens // 4), dev)
+    finally:
+        eng.shutdown()
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    emit(phase="decode_launches", launches=counts, plain_calls=plain,
+         peak_device_bytes=peak)
+    return {"counts": counts, "plain": plain}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -380,6 +822,10 @@ def main() -> int:
     if args.cpu_rehearsal:
         torch.set_num_threads(min(4, os.cpu_count() or 1))
         main_path(torch.device("cpu"), 64, 10, 4, "cpu rehearsal")
+        small = dict(vocab=256, d_model=64, n_layers=4, num_heads=4,
+                     kv_heads=2, head_dim=16, d_ff=128, cache_len=128)
+        decode_phase(torch.device("cpu"), small, (16, 48), 8,
+                     "cpu rehearsal")
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -392,9 +838,21 @@ def main() -> int:
     card = info["nvidia_smi"]
     build_kernels()
     errs = compare_kernels(dev)
+    da_errs = compare_decode_attention(dev)
     main = main_path(dev, 224, 1000, 8, card)
+    t_dec = time.perf_counter()
+    dec = decode_phase(dev, STARCODER2_3B, PROMPT_LEN, NEW_TOKENS, card)
+    emit(phase="decode_phase_done", seconds=time.perf_counter() - t_dec)
+    check(dec["counts"]["decode_attention"] > 0,
+          "decode_attention was never launched on the decode path")
+    check(dec["plain"]["decode_attention"] == 0,
+          "decode attention ran its plain version on the decode path")
     shapes = sorted(set(main["shapes"]) | set(SWEEP))
     times = time_kernels(dev, shapes)
+    cfg = STARCODER2_3B
+    da_shape = (lm_graph.DECODE_STEP_ROWS, cfg["num_heads"], cfg["kv_heads"],
+                cfg["head_dim"], cfg["cache_len"])
+    da_t = time_decode_attention(dev, *da_shape)
     # the kernels line reports the largest grid one request puts on the
     # wire on the main path
     R, C = max(main["shapes"])
@@ -414,6 +872,18 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": None,
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
             "shape": [R, C], "card": card})
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:74",
+        "launches": dec["counts"]["decode_attention"],
+        "max_abs_err": da_errs["f32"], "max_abs_err_bf16": da_errs["bf16"],
+        "ms": da_t["ms"], "plain_ms": da_t["plain_ms"],
+        "bound_ms": da_t["bound_ms"], "bound_by": da_t["bound_by"],
+        "library_ms": da_t["library_ms"], "call_ms": da_t["call_ms"],
+        "plain_call_ms": da_t["plain_call_ms"],
+        "library_call_ms": da_t["library_call_ms"],
+        "shape": list(da_shape), "card": card})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

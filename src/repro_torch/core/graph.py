@@ -97,8 +97,9 @@ def to_tensor(leaf: Any, device: torch.device) -> torch.Tensor:
 class LayerDecode:
     """Autoregressive view of a stateful layer (attention with a KV cache).
 
-    Kept for the API's shape; the port serves no decode-capable graph
-    yet, so nothing builds one.
+    ``repro_torch.models.lm_graph`` builds one per attention block; the
+    compute node runs ``prefill_fn`` when a session opens and ``step_fn``
+    for each later token, with the caches resident on the replica.
     """
 
     prefill_fn: Callable[..., Any]         # (params, x) -> (y, cache)

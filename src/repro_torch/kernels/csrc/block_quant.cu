@@ -22,12 +22,16 @@
 // reference writes absmax/127.0, but XLA compiles a division by a constant
 // into a multiply by its float32 reciprocal, and that is what its q8 wire
 // blobs carry.  x/scale is a true division (__fdiv_rn, never a reciprocal
-// multiply; built without --use_fast_math, so subnormals are kept), and
-// rintf rounds half to even.  A NaN quotient (0/0 when absmax is subnormal
-// and its scale underflows to 0) becomes 0, which is what PyTorch's CUDA
-// cast of NaN to int8 gives for the plain version.  A NaN input makes the tile's
-// absmax NaN and its scale 1.0, as in the plain version.
+// multiply; built without --use_fast_math), and rintf rounds half to even.
+// Subnormals: XLA treats a subnormal input as zero and flushes a subnormal
+// result to zero, and a TPU has none, so every loaded value, the scale and
+// the dequantized product go through flush() (|v| < FLT_MIN -> a zero of
+// v's sign), explicitly rather than by -ftz, which would not say where.  A
+// NaN quotient (0/0: a flushed element over a flushed scale) becomes 0, as
+// XLA's cast gives.  A NaN input makes the tile's absmax NaN and its scale
+// 1.0, as in the plain version.
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
@@ -37,6 +41,14 @@ constexpr int kTileC = 128;
 constexpr int kWarps = 4;              // tiles (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInv127 = 1.0f / 127.0f;   // correctly rounded at compile time
+
+__device__ __forceinline__ float flush(float v) {
+  return fabsf(v) < FLT_MIN ? copysignf(0.0f, v) : v;
+}
+
+__device__ __forceinline__ float4 flush4(float4 v) {
+  return make_float4(flush(v.x), flush(v.y), flush(v.z), flush(v.w));
+}
 
 __device__ __forceinline__ signed char quant1(float v, float scale) {
   const float r = rintf(__fdiv_rn(v, scale));
@@ -67,7 +79,7 @@ quant_kernel(const float* __restrict__ x, signed char* __restrict__ q,
   bool nan = false;
 #pragma unroll
   for (int r = 0; r < kTileR; ++r) {
-    v[r] = __ldg(reinterpret_cast<const float4*>(x + off + r * C));
+    v[r] = flush4(__ldg(reinterpret_cast<const float4*>(x + off + r * C)));
     m = fmaxf(m, absmax4(v[r]));
     nan |= isnan4(v[r]);
   }
@@ -75,7 +87,7 @@ quant_kernel(const float* __restrict__ x, signed char* __restrict__ q,
   for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
   // fmaxf drops NaN; the plain version's amax propagates it (-> scale 1.0)
   if (__any_sync(kFull, nan)) m = __int_as_float(0x7fc00000);
-  const float scale = m > 0.0f ? __fmul_rn(m, kInv127) : 1.0f;
+  const float scale = m > 0.0f ? flush(__fmul_rn(m, kInv127)) : 1.0f;
 
 #pragma unroll
   for (int r = 0; r < kTileR; ++r) {
@@ -99,15 +111,15 @@ dequant_kernel(const signed char* __restrict__ q,
   const long long tiles_c = C / kTileC;
   const long long tr = tile / tiles_c, tc = tile - tr * tiles_c;
   const long long off = tr * kTileR * C + tc * kTileC + lane * 4;
-  const float s = __ldg(scales + tile);
+  const float s = flush(__ldg(scales + tile));
 #pragma unroll
   for (int r = 0; r < kTileR; ++r) {
     const char4 c = *reinterpret_cast<const char4*>(q + off + r * C);
     float4 o;
-    o.x = __fmul_rn(static_cast<float>(c.x), s);
-    o.y = __fmul_rn(static_cast<float>(c.y), s);
-    o.z = __fmul_rn(static_cast<float>(c.z), s);
-    o.w = __fmul_rn(static_cast<float>(c.w), s);
+    o.x = flush(__fmul_rn(static_cast<float>(c.x), s));
+    o.y = flush(__fmul_rn(static_cast<float>(c.y), s));
+    o.z = flush(__fmul_rn(static_cast<float>(c.z), s));
+    o.w = flush(__fmul_rn(static_cast<float>(c.w), s));
     *reinterpret_cast<float4*>(out + off + r * C) = o;
   }
 }

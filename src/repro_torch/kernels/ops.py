@@ -1,10 +1,11 @@
 """Public wrappers around the port's kernels (twin of ``repro.kernels.ops``,
-block-quantization part).
+block-quantization and decode-attention parts).
 
-Padding and reshaping to tile multiples live here so the kernel stays
+Padding and reshaping to tile multiples live here so the kernels stay
 shape-exact; each call runs the CUDA kernel for a CUDA tensor and the
 plain PyTorch version for a CPU tensor (see
-:mod:`repro_torch.kernels.block_quant`).
+:mod:`repro_torch.kernels.block_quant` and
+:mod:`repro_torch.kernels.decode_attention`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import block_quant as _bq
+from repro_torch.kernels import decode_attention as _da
 
 
 # -- block quantization (wire compression for the DEFER pipeline) ---------------
@@ -44,3 +46,18 @@ def quant_bytes(shape, dtype=torch.bfloat16) -> tuple[int, int]:
     raw = n * itemsize
     wire = n * 1 + (n // (_bq.TILE_R * _bq.TILE_C)) * 4   # int8 + f32 scales
     return raw, wire
+
+
+# -- decode attention ------------------------------------------------------------
+
+def decode_attention(q, k, v, kpos, pos, window, scale):
+    """q [B,1,H,hd]; k/v [B,C,kv,hd]; kpos [B,C]; pos [B] -> [B,1,H,hd].
+
+    Pads C to the kernel's block with zero K/V and ``kpos = -1`` (masked
+    out), as the reference pads to its own block."""
+    pad = (-k.shape[1]) % _da.BLOCK_C
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-1)
+    return _da.decode_attention(q, k, v, kpos, pos, window, scale)

@@ -2,9 +2,11 @@
 ``repro.kernels.ref``).
 
 Each function is the numerical ground truth its kernel is held against:
-the wrappers in :mod:`repro_torch.kernels.block_quant` run it for a CPU
-tensor, the CPU tests hold it byte for byte against the JAX oracle, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.  They are
+the wrappers in :mod:`repro_torch.kernels.block_quant` and
+:mod:`repro_torch.kernels.decode_attention` run it for a CPU tensor, the
+CPU tests hold it against the JAX oracle (byte for byte for block
+quantization, to a stated tolerance for attention), and ``chip_smoke.py``
+holds the CUDA kernel against it on the card.  They are
 deliberately written in the most obvious way.
 """
 from __future__ import annotations
@@ -22,6 +24,19 @@ TILE_R, TILE_C = 8, 128  # the wire format's tile: 8 rows x 128 columns
 # divides instead and its scale can differ in the last bit.)
 INV127 = float(np.float32(1.0) / np.float32(127.0))
 
+# The reference's platforms have no subnormal floats: XLA treats a subnormal
+# input as zero (DAZ) and flushes a subnormal result to zero (FTZ), and a TPU
+# has none at all.  The plain versions (and the CUDA kernel) flush
+# explicitly, keeping the sign, so q8 blobs stay byte-identical on tiles
+# whose absmax is subnormal or just above FLT_MIN.  Not
+# ``torch.set_flush_denormal``: that is a setting of the whole process.
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """|x| < FLT_MIN -> a zero of x's sign; NaN and everything else kept."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
 
 # -- block quantization (the ZFP fixed-rate adaptation) -----------------------
 
@@ -31,15 +46,18 @@ def quantize_blocks_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     x [R, C] (R % 8 == 0, C % 128 == 0) -> (q int8 [R, C],
     scales f32 [R/8, C/128]).  scale = absmax * INV127 per tile (1.0 for
     an all-zero tile); q = clip(round_half_even(x/scale), ±127) with an
-    IEEE division.
+    IEEE division.  Subnormal inputs and scales flush to zero first (see
+    ``FLT_MIN``); a NaN quotient (0/0 over a flushed scale, or a NaN
+    input) gives q = 0, as XLA's and the CUDA kernel's casts do.
     """
     R, C = x.shape
     tr, tc = R // TILE_R, C // TILE_C
-    xt = x.to(torch.float32).reshape(tr, TILE_R, tc, TILE_C)
+    xt = flush_subnormal(x.to(torch.float32).reshape(tr, TILE_R, tc, TILE_C))
     absmax = xt.abs().amax(dim=(1, 3))                          # [tr, tc]
-    scale = torch.where(absmax > 0, absmax * INV127,
-                        torch.ones_like(absmax))
-    q = torch.clamp(torch.round(xt / scale[:, None, :, None]), -127, 127)
+    scale = flush_subnormal(torch.where(absmax > 0, absmax * INV127,
+                                        torch.ones_like(absmax)))
+    r = torch.round(xt / scale[:, None, :, None])
+    q = torch.clamp(torch.where(r.isnan(), 0.0, r), -127, 127)
     return q.to(torch.int8).reshape(R, C), scale
 
 
@@ -48,4 +66,33 @@ def dequantize_blocks_ref(q: torch.Tensor, scale: torch.Tensor,
     R, C = q.shape
     tr, tc = R // TILE_R, C // TILE_C
     qt = q.to(torch.float32).reshape(tr, TILE_R, tc, TILE_C)
-    return (qt * scale[:, None, :, None]).reshape(R, C).to(dtype)
+    s = flush_subnormal(scale.to(torch.float32))
+    out = flush_subnormal(qt * s[:, None, :, None])
+    return out.reshape(R, C).to(dtype)
+
+
+# -- single-token decode attention ---------------------------------------------
+
+NEG_INF = -1e30
+
+
+def decode_attention_ref(q, k, v, kpos, pos, window, scale):
+    """q [B,1,H,hd]; k/v [B,C,kv,hd]; kpos [B,C] absolute position per cache
+    slot (-1 = empty); pos [B] current position.  GQA broadcast; returns
+    [B,1,H,hd] in f32.  Invalid slots are masked with -1e30, so an
+    all-empty cache gives uniform weights (finite) rather than NaN."""
+    B, _, H, hd = q.shape
+    C, kv = k.shape[1], k.shape[2]
+    g = H // kv
+    qg = q.to(torch.float32).reshape(B, kv, g, hd)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, kf) * scale     # [B,kv,g,C]
+    delta = pos[:, None] - kpos                                  # [B,C]
+    valid = (kpos >= 0) & (delta >= 0)
+    if window is not None:
+        valid &= delta < window
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w, vf)
+    return out.reshape(B, 1, H, hd)

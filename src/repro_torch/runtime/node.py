@@ -67,7 +67,8 @@ from repro_torch.runtime.transport import Channel, ChannelClosed, InprocChannel
 # egress exits WITHOUT forwarding it downstream, so the next stage's
 # _STOP accounting never sees a retired replica.
 from repro_torch.runtime.wire import (_RETIRE, _STOP,  # noqa: F401
-                                      K_CLOSE, K_PLAIN, BatchEnvelope,
+                                      K_CLOSE, K_OPEN, K_PLAIN, K_STEP,
+                                      BatchEnvelope,
                                       ReconfigMarker, RowExtent, WireCodec,
                                       WireRecord, slice_parts,
                                       tree_unflatten_paths)
@@ -117,6 +118,20 @@ def _signature(boundary: dict[str, np.ndarray]) -> tuple:
     free to differ — ragged requests concatenate along axis 0."""
     return tuple(sorted((k, v.shape[1:], str(v.dtype))
                         for k, v in boundary.items()))
+
+
+def _stack_trees(trees: list) -> Any:
+    """Concatenate matching nested dicts of tensors along axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.cat(trees, dim=0)
+
+
+def _row_tree(tree: Any, i: int) -> Any:
+    """Row ``i`` of every tensor of a nested dict, each in its own storage."""
+    if isinstance(tree, dict):
+        return {k: _row_tree(v, i) for k, v in tree.items()}
+    return tree[i:i + 1].clone()
 
 
 def _pad_middle(arr: np.ndarray) -> np.ndarray:
@@ -200,10 +215,14 @@ class ComputeNode:
         self._required: list[str] = []
         self._exported: list[str] = []
         self._apply = None
-        # decode-session state: resident KV caches for sessions pinned to
-        # this replica (LRU-bounded — see SessionStore); stays empty until
-        # the decode path is ported
+        # decode-session state: resident KV caches (device tensors) for
+        # sessions pinned to this replica (LRU-bounded — see SessionStore);
+        # prefill/step views built only when the graph is decode-capable
         self.sessions = SessionStore(session_capacity)
+        self._prefill_apply = None
+        self._decode_apply = None
+        self._step_rows = 1
+        self._is_tail = False
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
         # live gauge (NOT a window counter — reset_stats leaves it):
@@ -262,6 +281,9 @@ class ComputeNode:
         # layer (attention over the padded axis) makes this segment fall
         # back to exact bucketing
         self._pad_safe = all(n.pad_safe for n in self._nodes)
+        # the tail stage trims decode outputs to the last position, so a
+        # session frame ships one row of logits, not the whole prompt's
+        self._is_tail = hi == len(graph.nodes)
 
     def _apply_reconfig(self, marker: ReconfigMarker) -> None:
         """Commit a live repartition at the epoch fence (compute stage).
@@ -320,13 +342,51 @@ class ComputeNode:
             return {n: acts[n] for n in exported}
 
         self._apply = apply_fn
-        # the autoregressive (prefill / step) view of a decode-capable graph
-        # is not ported yet: such a graph is refused, and session frames on
-        # any other graph fail as SessionUnsupported (see _decode_group)
-        if self._graph is not None and self._graph.decode_capable:
-            raise NotImplementedError(
-                "decode serving (prefill/step over resident KV caches) is "
-                "not ported to repro_torch yet")
+
+        # autoregressive view of the same slice: prefill walks the chain
+        # once over a full prompt collecting each stateful layer's KV
+        # cache; step consumes one token per row against stacked caches
+        # (rows may sit at different sequence positions).  Only built for
+        # decode-capable graphs — a pure chain, so the slice has exactly
+        # one inbound and one outbound boundary activation.
+        self._prefill_apply = None
+        self._decode_apply = None
+        graph = self._graph
+        if (graph is None or not graph.decode_capable or not nodes
+                or len(self._required) != 1 or len(exported) != 1):
+            return
+
+        def prefill_fn(x: torch.Tensor):
+            acts = x
+            caches = {}
+            with torch.inference_mode():
+                for node in nodes:
+                    p = params.get(node.name, {})
+                    if node.decode is not None:
+                        acts, caches[node.name] = node.decode.prefill_fn(
+                            p, acts)
+                    else:
+                        acts = node.fn(p, acts)
+            return acts, caches
+
+        def step_fn(caches, x: torch.Tensor, pos: torch.Tensor):
+            acts = x
+            new = {}
+            with torch.inference_mode():
+                for node in nodes:
+                    p = params.get(node.name, {})
+                    if node.decode is not None:
+                        acts, new[node.name] = node.decode.step_fn(
+                            p, caches[node.name], acts, pos)
+                    else:
+                        acts = node.fn(p, acts)
+            return acts, new
+
+        self._prefill_apply = prefill_fn
+        self._decode_apply = step_fn
+        # rows of every step apply: the graph's, at which its reference
+        # decodes too (see repro_torch.models.lm_graph)
+        self._step_rows = graph.decode_step_rows
 
     def precompile(self) -> None:
         """Warm up every power-of-two padded batch shape this node can hit
@@ -762,20 +822,36 @@ class ComputeNode:
 
         Closes evict the session's resident caches and pass their payload
         through untouched (each stage on the way to the tail evicts in
-        turn).  Opens and steps need the slice's autoregressive view, which
-        the port does not serve yet (decode-capable graphs are refused at
-        configuration), so they fail as ``SessionUnsupported`` — what the
-        reference answers for a graph with no ``LayerDecode`` nodes.
+        turn).  Opens run the slice's prefill individually (B=1) and park
+        the resulting caches, device tensors, in this replica's
+        :class:`SessionStore`; the tail stage trims its output to the last
+        position so only one row of logits ships.  Steps batch ACROSS
+        sessions: per-session caches stack along the leading axis,
+        positions ride per row, and one step apply serves up to
+        ``decode_step_rows`` sessions — continuous batching of decode at
+        *different* sequence positions.  Every step apply computes exactly
+        ``decode_step_rows`` rows (the wave padded by repeating its last
+        row, more sessions in several applies), so a session's arithmetic
+        is the single-session reference's whatever shares its wave.  A
+        step whose session has no resident cache here (evicted,
+        repartitioned, replica restarted) fails with a ``SessionLost``
+        error envelope; recovery is the generate loop's re-prefill, never
+        a replay.
 
         Session envelopes carry exactly one extent by protocol (routers
         pin whole envelopes; a multi-session envelope could not route
         sticky), enforced here.
 
         Returns ``(outs, failures, compute_s, padded_rows)`` for the
-        caller's trace accounting.
+        caller's trace accounting; ``compute_s`` ends with each result's
+        device-to-host copy.
         """
         outs: list[tuple[list[RowExtent], dict[str, np.ndarray]]] = []
         failures: list[BatchEnvelope] = []
+        compute_s = 0.0
+        padded = 0
+        out_name = self._exported[0] if self._exported else ""
+        steps: list[tuple[RowExtent, np.ndarray, Any]] = []
         for d in group:
             if len(d.extents) != 1:
                 failures.append(BatchEnvelope(
@@ -788,13 +864,91 @@ class ComputeNode:
                 self.sessions.pop(e.session)
                 outs.append(([e], d.boundary))
                 continue
-            failures.append(BatchEnvelope(
-                [e], b"",
-                error="SessionUnsupported: this partition has no "
-                      "autoregressive view (the graph declares no "
-                      "LayerDecode nodes, or the slice is not a "
-                      "single-boundary chain)"))
-        return outs, failures, 0.0, 0
+            if self._prefill_apply is None:
+                failures.append(BatchEnvelope(
+                    [e], b"",
+                    error="SessionUnsupported: this partition has no "
+                          "autoregressive view (the graph declares no "
+                          "LayerDecode nodes, or the slice is not a "
+                          "single-boundary chain)"))
+                continue
+            x = next(iter(d.boundary.values()))
+            if e.kind == K_OPEN:
+                t0 = time.perf_counter()
+                try:
+                    y, caches = self._prefill_apply(
+                        torch.from_numpy(x).to(self.device))
+                    if self._is_tail:
+                        y = y[:, -1:]
+                    y = y.cpu().numpy()
+                except Exception:
+                    failures.append(BatchEnvelope(
+                        [e], b"", error=traceback.format_exc()))
+                    continue
+                finally:
+                    compute_s += time.perf_counter() - t0
+                # park the caches even when the slice holds no stateful
+                # layer (caches == {}): residency doubles as the routing
+                # check a later step validates against
+                self.sessions.put(e.session, caches)
+                padded += x.shape[0]
+                outs.append(([e], {out_name: y}))
+            elif e.kind == K_STEP:
+                cache = self.sessions.get(e.session)
+                if cache is None:
+                    failures.append(BatchEnvelope([e], b"", error=(
+                        f"SessionLost: stage {self.index} replica "
+                        f"{self.replica} holds no KV cache for session "
+                        f"{e.session!r} (evicted, repartitioned, or the "
+                        "replica restarted); re-open the session from "
+                        "its retained history")))
+                    continue
+                steps.append((e, np.asarray(x), cache))
+            else:
+                failures.append(BatchEnvelope(
+                    [e], b"",
+                    error=f"unknown session frame kind {e.kind}"))
+        rows = self._step_rows
+        for i0 in range(0, len(steps), rows):
+            wave = steps[i0:i0 + rows]
+            s_out, s_fail, s_compute = self._step_wave(wave, rows, out_name)
+            outs.extend(s_out)
+            failures.extend(s_fail)
+            compute_s += s_compute
+            padded += rows
+        return outs, failures, compute_s, padded
+
+    def _step_wave(self, wave: list[tuple[RowExtent, np.ndarray, Any]],
+                   rows: int, out_name: str
+                   ) -> tuple[list, list[BatchEnvelope], float]:
+        """One step apply over ``wave``'s sessions at ``rows`` rows.
+
+        The wave is padded by repeating its last row (token, position AND
+        caches); the padded rows' outputs are dropped.  Each session keeps
+        its own cache storage: a row of the stacked result is cloned, so
+        no session pins the whole wave's batched cache."""
+        pad = [wave[-1]] * (rows - len(wave))
+        batch = wave + pad
+        dev = self.device
+        t0 = time.perf_counter()
+        try:
+            xs = torch.from_numpy(
+                np.concatenate([x for _, x, _ in batch], axis=0)).to(dev)
+            pos = torch.tensor([e.pos for e, _, _ in batch],
+                               dtype=torch.int32, device=dev)
+            caches = _stack_trees([c for _, _, c in batch])
+            y, new = self._decode_apply(caches, xs, pos)
+            y = y.cpu().numpy()
+        except Exception:
+            tb = traceback.format_exc()
+            return [], [BatchEnvelope([e], b"", error=tb)
+                        for e, _, _ in wave], time.perf_counter() - t0
+        compute_s = time.perf_counter() - t0
+        outs = []
+        for i, (e, _, _) in enumerate(wave):
+            self.sessions.put(e.session, _row_tree(new, i))
+            outs.append(([e], {out_name: y[i:i + 1]}))
+        return outs, [], compute_s
 
     # -- stage 3: egress (encode once per bucket, relay) ----------------------
     def _relay(self, item: Any) -> None:

@@ -27,6 +27,9 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.core.codecs", "repro_torch.models.cnn",
                  "repro_torch.kernels.ref", "repro_torch.kernels.block_quant",
                  "repro_torch.kernels.ops", "repro_torch.kernels._build",
+                 "repro_torch.kernels.decode_attention",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.lm_graph",
                  "repro_torch.runtime.wire", "repro_torch.runtime.transport",
                  "repro_torch.runtime.session", "repro_torch.runtime.node",
                  "repro_torch.runtime.topology", "repro_torch.runtime.router",

@@ -116,19 +116,71 @@ def test_scale_is_the_compiled_reference_not_the_eager_one():
     assert np.asarray(qe).tobytes() == qt.tobytes()
 
 
-def test_subnormal_absmax_differs_from_jax_on_cpu():
-    """A tile whose absmax is subnormal: absmax/127 underflows to 0.  The
-    port keeps subnormals (as the CUDA kernel does), so its scale is 0.0,
-    x/0 gives ±inf -> ±127 and 0/0 gives NaN -> 0.  XLA on the CPU flushes
-    the subnormal to zero, so the reference sees an all-zero tile (scale
-    1.0, q = 0).  Recorded here, not hidden (ROADMAP queue 3)."""
+FLT_MIN = np.finfo(np.float32).tiny
+# (absmax a, q of [a, -a/2, 0.3a], scale): what the compiled reference gives
+# on the CPU, where XLA treats subnormal inputs as zero and flushes a
+# subnormal scale to zero (a TPU has no subnormals either)
+SUBNORMAL_TABLE = [
+    (np.float32(1e-44), [0, 0, 0], 1.0),
+    (np.float32(FLT_MIN / 2), [0, 0, 0], 1.0),
+    (np.float32(FLT_MIN), [127, 0, 0], 0.0),
+    (np.float32(2 * FLT_MIN), [127, -127, 0], 0.0),
+    (np.float32(100 * FLT_MIN), [127, -127, 127], 0.0),
+    (np.float32(127 * FLT_MIN), [127, -64, 38], float(np.float32(FLT_MIN))),
+]
+
+
+def subnormal_tile(a) -> np.ndarray:
     x = np.zeros((8, 128), np.float32)
-    x[0, :3] = [1e-44, -1e-44, 5e-45]
+    x[0, :3] = [a, -a / np.float32(2), np.float32(0.3) * a]
+    return x
+
+
+@pytest.mark.parametrize("a,want_q,want_s", SUBNORMAL_TABLE,
+                         ids=[f"{r[0]:.3e}" for r in SUBNORMAL_TABLE])
+def test_subnormal_absmax_differs_from_jax_on_cpu(a, want_q, want_s):
+    """A tile whose absmax is subnormal or just above FLT_MIN: the port
+    flushes like XLA (inputs and scales below FLT_MIN become zero; 0/0
+    gives q = 0), so q, scale and the dequantized values are byte-identical
+    to the jitted reference, and pinned to the table."""
+    x = subnormal_tile(a)
     qt, st = _torch_quant(x)
     qj, sj = _jax_quant(x)
-    assert st.tolist() == [[0.0]]
-    assert list(qt[0, :4]) == [127, -127, 127, 0] and not qt[1:].any()
-    assert sj.tolist() == [[1.0]] and not qj.any()
+    assert qt.tobytes() == qj.tobytes() and st.tobytes() == sj.tobytes()
+    assert list(qt[0, :3]) == want_q and not qt[0, 3:].any() \
+        and not qt[1:].any()
+    assert st.tolist() == [[want_s]]
+    dj = np.asarray(jax.jit(jref.dequantize_blocks_ref)(qj, sj))
+    dt = tref.dequantize_blocks_ref(torch.from_numpy(qt),
+                                    torch.from_numpy(st)).numpy()
+    assert dt.tobytes() == dj.tobytes()
+
+
+def test_subnormal_scale_dequantizes_to_signed_zero_like_jax():
+    """A blob may carry a subnormal scale: XLA reads it as a zero of its
+    sign, so every product is a signed zero."""
+    q = np.zeros((8, 128), np.int8)
+    q[0, :3] = [5, -5, 0]
+    dq = jax.jit(jref.dequantize_blocks_ref)
+    for s in (np.float32(FLT_MIN / 4), np.float32(-FLT_MIN / 4)):
+        sc = np.full((1, 1), s, np.float32)
+        dj = np.asarray(dq(q, sc))
+        dt = tref.dequantize_blocks_ref(torch.from_numpy(q),
+                                        torch.from_numpy(sc)).numpy()
+        assert dt.tobytes() == dj.tobytes()
+
+
+def test_nan_tile_and_scale_rounding_unchanged_by_the_flush():
+    """0/0 and NaN inputs still give q = 0 (scale 1.0 for a NaN tile), and
+    a normal tile's scale is still absmax·f32(1/127)."""
+    x = np.zeros((16, 128), np.float32)
+    x[0, :2] = [np.nan, 3.0]
+    x[8, :3] = [5.0, -1.0, 2.5]
+    qt, st = _torch_quant(x)
+    qj, sj = _jax_quant(x)
+    assert qt.tobytes() == qj.tobytes() and st.tobytes() == sj.tobytes()
+    assert st[0, 0] == 1.0 and list(qt[0, :2]) == [0, 3]
+    assert st[1, 0] == np.float32(5.0) * np.float32(tref.INV127)
 
 
 @pytest.mark.parametrize("shape", GRID_SHAPES[:3])
@@ -245,9 +297,16 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_cuda_kernel_edge_tiles(cuda_device):
-    x = np.concatenate([_edge_tiles(), np.zeros((8, 128), np.float32)])
-    x[32, :3] = [1e-44, -1e-44, 5e-45]
+    x = np.concatenate([_edge_tiles()]
+                       + [subnormal_tile(r[0]) for r in SUBNORMAL_TABLE])
     xt = torch.from_numpy(x).to(cuda_device)
     q, s = tbq.quantize_blocks(xt)
     qr, sr = tref.quantize_blocks_ref(xt)
-    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(q, qr) and torch.equal(s.view(torch.int32),
+                                              sr.view(torch.int32))
+    qj, sj = _jax_quant(x)
+    assert q.cpu().numpy().tobytes() == qj.tobytes()
+    assert s.cpu().numpy().tobytes() == sj.tobytes()
+    out = tbq.dequantize_blocks(q, s)
+    assert torch.equal(out.view(torch.int32),
+                       tref.dequantize_blocks_ref(qr, sr).view(torch.int32))
