@@ -13,11 +13,14 @@ Phases, each printing JSON records on their own lines:
    quantization byte for byte at the wire shapes and on edge-case tiles
    (the subnormal tiles also against the reference's pinned values),
    decode attention within 1e-5 (f32) / 2e-2 (bf16) on the reference's
-   sweep, the decode path's shapes and an all-empty cache; after the
-   main paths, each kernel is timed with CUDA events at the path's
+   sweep, the decode path's shapes and an all-empty cache, the SSD scan
+   on the reference's sweep (its bars 1e-4 / 5e-2), Mamba2-2.7B's
+   prefill shape, a ragged 100-token chunk and a chunk whose decay
+   overflows the TPU kernel (finite), and 4 chunks against 2 + 2; after
+   the main paths, each kernel is timed with CUDA events at the path's
    shapes, on the device (calls captured in a CUDA graph and replayed)
    and per call from Python, with inputs rotated through more than the
-   50 MB L2, beside its byte bound, its plain version and, for decode
+   50 MB L2, beside its bound, its plain version and, for decode
    attention, ``scaled_dot_product_attention``;
 4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
@@ -35,12 +38,23 @@ Phases, each printing JSON records on their own lines:
    (first window with a live ``scale()`` of stage 1, then a warm window);
    every token must equal the port's single-device
    ``pipeline_decode_reference`` on the card, the decode-attention kernel
-   must launch and its plain version must not run.
+   must launch and its plain version must not run;
+6. slice D's path, Mamba2-2.7B at its published widths and depth (64
+   layers, d_model 2560, 80 heads of 64, d_state 128, chunk 256, vocab
+   50280 padded to 50304, f32, seeded fan-in weights drawn on the card):
+   4 prompts of 2048 tokens through ``transformer.prefill(...,
+   use_kernel=True)`` (twice: cold, then timed warm), then 32 greedy
+   ``decode_step``s at B=4.  The kernel prefill's logits and every
+   layer's SSD and conv states must match ``prefill(use_kernel=False)``;
+   every token must equal the plain ``forward``'s argmax over the
+   extended sequences wherever its top-1/top-2 margin clears the stated
+   bar; the SSD kernel must launch once per layer and prefill and its
+   plain version must not run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phases 4 and 5 on the CPU at small sizes (no
+``--cpu-rehearsal`` runs phases 4, 5 and 6 on the CPU at small sizes (no
 kernel build), to rehearse the control flow without a card; it never
 prints a result and exits 3.
 """
@@ -48,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -69,7 +84,10 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_quant as bq  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.models import cnn, lm_graph  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.configs import base as cfg_base  # noqa: E402
+from repro_torch.configs import mamba2_2_7b  # noqa: E402
+from repro_torch.models import cnn, lm_graph, transformer  # noqa: E402
 from repro_torch.runtime import (DispatcherCodecs, InferenceEngine,  # noqa: E402
                                  TopologySpec, WireCodec)
 
@@ -92,6 +110,35 @@ DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
 STARCODER2_3B = dict(vocab=49152, d_model=3072, n_layers=30, num_heads=24,
                      kv_heads=2, head_dim=128, d_ff=12288, cache_len=4096)
 SESSIONS, NEW_TOKENS, PROMPT_LEN = 8, 32, (128, 512)
+# SSD scan, kernel vs plain.  On the reference's sweep and its input
+# distribution (dt ~ U(0.001, 0.1)), the reference's own bars: 1e-4 (f32)
+# and 5e-2 (bf16).  At the Mamba2 path's distribution (dt = softplus of a
+# fan-in projection, A = -1) a chunk's cum = cumsum(dt*A) reaches ~-256,
+# where one f32 ulp is 3e-5, and both versions exponentiate differences of
+# such sums in their own order: there the bar is 1e-3 of the case's
+# largest |y| (and of the largest |state|).  A bf16 output may in
+# addition round to the neighbouring bf16 value: + 2^-7 |y|.
+SSD_F32_ATOL, SSD_BF16_ATOL, SSD_STATE_RTOL = 1e-4, 5e-2, 1e-3
+SSD_PATH_REL = 1e-3
+BF16_ULP = 2.0 ** -7
+# (B, nc, Q, H, P, N): the reference's sweep (tests/test_kernels.py), then
+# Mamba2-2.7B's prefill at B=4, S=2048 and a 100-token prompt (one ragged
+# chunk of Q = 100)
+SSD_SWEEP = [(1, 2, 16, 2, 16, 8), (2, 4, 32, 3, 32, 16), (1, 8, 64, 2, 64, 64)]
+SSD_PATH = (4, 8, 256, 80, 64, 128)
+SSD_RAGGED = (4, 1, 100, 80, 64, 128)
+# Mamba2-2.7B (arXiv:2405.21060; src/repro_torch/configs/mamba2_2_7b.py) at
+# its published widths and depth: 4 prompts of 2048 tokens, 32 greedy
+# steps.  Kernel prefill vs plain prefill: the two scans differ only in
+# their f32 summation order (above), which 64 layers amplify; a CPU run of
+# this depth at d_model 512 with the kernel's cumsum order moved the
+# logits by 1.4e-4 and a layer's state by 1.9e-4 of its largest value, so
+# the bars are 5e-3 absolute for logits (|logits| ~ 2) and 5e-3 of each
+# layer's largest |state| (ssd and conv).  A greedy token must equal the
+# plain forward's argmax wherever that forward's top-1/top-2 margin is at
+# least MAMBA_MARGIN (twice the logit bar: both logits may move).
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 4, 2048, 32
+MAMBA_LOGIT_ATOL, MAMBA_STATE_REL, MAMBA_MARGIN = 5e-3, 5e-3, 1e-2
 # subnormal tiles [a, -a/2, 0.3a, 0...]: (a, q of the first 3, scale) as
 # the reference computes them (XLA reads subnormals as zero and flushes a
 # subnormal scale; a TPU has none)
@@ -409,6 +456,136 @@ def time_decode_attention(dev, B, H, kv, hd, C) -> dict:
     return rec
 
 
+def _ssd_inputs(shape, seed, dev, dtype=torch.float32, dist="sweep"):
+    """Seeded SSD-scan inputs drawn on ``dev``: x, B, C, state ~ N(0, 1);
+    dt ~ U(0.001, 0.1) and A ~ -U(0.5, 1.5) for the reference's sweep,
+    dt = softplus(N(0, 2)) and A = -1 for the Mamba2 path (a fan-in
+    projection of a normalised input, dt_bias 0, A_log 0), or dt = 3 and
+    A = -1 for a chunk whose decay overflows the TPU kernel."""
+    B, nc, Q, H, P, N = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device=dev)
+
+    x, Bm, Cm, st = randn(B, nc, Q, H, P), randn(B, nc, Q, N), \
+        randn(B, nc, Q, N), randn(B, H, P, N)
+    if dist == "sweep":
+        dt = 0.001 + 0.099 * torch.rand((B, nc, Q, H), generator=gen,
+                                        device=dev)
+        A = -(0.5 + torch.rand((H,), generator=gen, device=dev))
+    elif dist == "path":
+        dt = F.softplus(math.sqrt(2.0) * randn(B, nc, Q, H))
+        A = -torch.ones(H, device=dev)
+    else:
+        dt = torch.full((B, nc, Q, H), 3.0, device=dev)
+        A = -torch.ones(H, device=dev)
+    return (x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), st)
+
+
+def _ssd_errors(y, fin, yr, fr, dtype, dist) -> tuple[float, float, bool]:
+    """(max |y - y_plain|, max |state - state_plain|, within the bars)."""
+    y32, yr32 = y.float(), yr.float()
+    ey = (y32 - yr32).abs()
+    ef = (fin - fr).abs()
+    if dist == "sweep":
+        ytol = SSD_BF16_ATOL if dtype == torch.bfloat16 else SSD_F32_ATOL
+        ftol = ytol + SSD_STATE_RTOL * fr.abs()
+    else:
+        ytol = SSD_PATH_REL * max(1.0, float(yr32.abs().max()))
+        ftol = SSD_PATH_REL * max(1.0, float(fr.abs().max()))
+    if dtype == torch.bfloat16:
+        ytol = ytol + BF16_ULP * yr32.abs()
+    ok = bool((ey <= ytol).all()) and bool((ef <= ftol).all())
+    return float(ey.max()), float(ef.max()), ok
+
+
+def compare_ssd_scan(dev) -> dict:
+    """SSD-scan kernel vs its plain version on the card, f32 and bf16: the
+    reference's sweep, the Mamba2 path's shape and a ragged 100-token
+    chunk at the path's distribution, a chunk whose decay overflows the
+    TPU kernel (must be finite), and state chaining (4 chunks at once ==
+    2 + 2).  Returns the largest error per dtype."""
+    err = {"f32": 0.0, "bf16": 0.0}
+    cases = [(s, "sweep") for s in SSD_SWEEP]
+    cases += [(SSD_PATH, "path"), (SSD_RAGGED, "path"),
+              ((1, 2, 256, 8, 64, 128), "large")]
+    for i, (shape, dist) in enumerate(cases):
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            args = _ssd_inputs(shape, 40 + i, dev, dtype, dist)
+            y, fin = ssd.ssd_scan(*args)
+            torch.cuda.synchronize()
+            yr, fr = ref.ssd_scan_ref(*args)
+            finite = bool(torch.isfinite(y).all()) \
+                and bool(torch.isfinite(fin).all())
+            ey, ef, ok = _ssd_errors(y, fin, yr, fr, dtype, dist)
+            err[name] = max(err[name], ey)
+            emit(phase="ssd_scan_vs_plain", shape=list(shape), dtype=name,
+                 inputs=dist, max_abs_err=ey, max_abs_err_state=ef,
+                 y_max_abs=float(yr.float().abs().max()),
+                 within_tol=ok, finite=finite,
+                 plain_finite=bool(torch.isfinite(yr).all()))
+            check(finite and ok, f"ssd_scan kernel vs plain at {shape} "
+                                 f"{name} ({dist}): err {ey} / state {ef}, "
+                                 f"finite={finite}")
+            del args, y, fin, yr, fr
+    # state chaining: 4 chunks in one call == two calls of 2 chunks
+    x, dt, A, Bm, Cm, st = _ssd_inputs((1, 4, 64, 80, 64, 128), 60, dev,
+                                       dist="path")
+    y_all, f_all = ssd.ssd_scan(x, dt, A, Bm, Cm, st)
+    halves = [[t[:, sl].contiguous() for t in (x, dt, Bm, Cm)]
+              for sl in (slice(0, 2), slice(2, 4))]
+    y1, f1 = ssd.ssd_scan(halves[0][0], halves[0][1], A, halves[0][2],
+                          halves[0][3], st)
+    y2, f2 = ssd.ssd_scan(halves[1][0], halves[1][1], A, halves[1][2],
+                          halves[1][3], f1)
+    torch.cuda.synchronize()
+    ey = float((y_all - torch.cat([y1, y2], dim=1)).abs().max())
+    ef = float((f_all - f2).abs().max())
+    emit(phase="ssd_scan_chaining", max_abs_err=ey, max_abs_err_state=ef,
+         identical=bool(ey == 0.0 and ef == 0.0), tol=SSD_F32_ATOL)
+    check(ey <= SSD_F32_ATOL and ef <= SSD_F32_ATOL,
+          f"ssd_scan state chaining: err {ey} / state {ef}")
+    torch.cuda.empty_cache()
+    return err
+
+
+def _ssd_bounds(B, nc, Q, H, P, N) -> dict:
+    """Least time for one f32 SSD-scan call: read x, dt, A, B, C and the
+    initial state once, write y and the final state once; the work its
+    inputs need is the causal half of each chunk's C.B (per batch row and
+    chunk, not per head) and of scores @ x (per head), and the state's
+    contribution in and update out (2 flops per multiply-add).
+    ``repo_ops`` is ``mamba_flops``' intra + inter count, which prices the
+    full Q x Q product."""
+    T = B * nc * Q
+    nbytes = 4 * (2 * T * H * P + 2 * T * N + T * H + H + 2 * B * H * P * N)
+    ops_ = T * (Q + 1) * (N + H * P) + 4 * T * H * P * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops_,
+            "repo_ops": 2 * T * Q * (N + H * P) + 4 * T * H * P * N,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def time_ssd_scan(dev, shape) -> dict:
+    """Kernel and plain version at the Mamba2 path's shape (f32, the path's
+    input distribution), two input sets of 0.37 GB each (past the L2)."""
+    sets = [_ssd_inputs(shape, 70 + i, dev, dist="path") for i in range(2)]
+    rec = dict(shape=list(shape), kernel="ssd_scan",
+               ms=_device_ms(ssd.ssd_scan, sets),
+               plain_ms=_device_ms(ref.ssd_scan_ref, sets, reps=3),
+               call_ms=_call_ms(ssd.ssd_scan, sets, iters=20),
+               plain_call_ms=_call_ms(ref.ssd_scan_ref, sets, iters=6),
+               buffers=len(sets), **_ssd_bounds(*shape))
+    rec["tflop_s"] = rec["ops"] / (rec["ms"] * 1e-3) / 1e12
+    emit(phase="kernel_time", **rec)
+    del sets
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phase 4: slice A's path -------------------------------------------------------
 
 def fan_in_params(graph, seed: int) -> dict:
@@ -682,6 +859,24 @@ def _generate_all(eng, prompts, new_tokens, rescale) -> tuple[list, dict]:
         "live_scale_s": scale_s}
 
 
+def _kernel_rows(prof) -> list[tuple[float, str, int]]:
+    """(device us, name, count) of every kernel in a ``torch.profiler``
+    trace, largest first.  Only the device's own events: an operator's
+    row (``aten::mm``) also carries the device time of the kernels it
+    launched, and counting both would count that time twice."""
+    rows = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_window(eng, prompts, want, new_tokens, dev) -> None:
     """A short third window under ``torch.profiler``: the device's busy
     share (kernel time summed over the one stream / wall) and the kernels
@@ -696,14 +891,7 @@ def profile_window(eng, prompts, want, new_tokens, dev) -> None:
     wall_us = (time.perf_counter() - t0) * 1e6
     check(all(o == w[:new_tokens] for o, w in zip(outs, want)),
           "profiled window: tokens differ from the reference")
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((dt, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     emit(phase="decode_profile", tokens=rec["tokens"],
          tokens_per_s=rec["tokens_per_s"], wall_s=wall_us / 1e6,
@@ -813,10 +1001,225 @@ def decode_phase(dev, cfg: dict, prompt_len: tuple[int, int],
     return {"counts": counts, "plain": plain}
 
 
+# -- phase 6: slice D's path, Mamba2 prefill and greedy decode ---------------------
+
+def mamba2_params(cfg, seed: int, dev) -> dict:
+    """Seeded fan-in weights in the reference's tree, drawn on ``dev`` with
+    an explicit generator: He-init ``w ~ N(0, 2/fan_in)`` (in_proj, the
+    depthwise conv over its width, out_proj), norm scales 1, conv bias 0,
+    A_log 0, D 1, dt_bias 0, the embedding ``N(0, 0.02)`` with zero
+    pad-vocab rows, as ``init_lm`` builds it."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    spec = transformer.mamba_spec(cfg)
+    n, d, di, H = cfg.num_layers, cfg.d_model, spec.d_inner, spec.n_heads
+    ch, w = spec.conv_channels, cfg.ssm.conv_width
+
+    def he(shape, fan_in):
+        return torch.randn(shape, generator=gen, device=dev).mul_(
+            math.sqrt(2.0 / fan_in))
+
+    def full(shape, v):
+        return torch.full(shape, float(v), device=dev)
+
+    table = torch.zeros((cfg.padded_vocab, d), device=dev)
+    table[:cfg.vocab] = torch.randn((cfg.vocab, d), generator=gen,
+                                    device=dev).mul_(0.02)
+    mamba = {"ln": {"scale": full((n, d), 1)},
+             "in_proj": he((n, d, 2 * di + 2 * cfg.ssm.state_dim + H), d),
+             "conv_w": he((n, w, ch), w), "conv_b": full((n, ch), 0),
+             "A_log": full((n, H), 0), "D": full((n, H), 1),
+             "dt_bias": full((n, H), 0), "norm": {"scale": full((n, di), 1)},
+             "out_proj": he((n, di, d), di)}
+    return {"embed": {"table": table}, "units": {"pos0": {"mamba": mamba}},
+            "final_ln": {"scale": full((d,), 1)}}
+
+
+def _rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _profile(fn, dev) -> dict:
+    """``fn()`` under ``torch.profiler``: the device's kernels, their count
+    and the card's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _kernel_rows(prof)
+    busy = sum(r[0] for r in rows)
+    return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
+            "device_busy_share": busy / wall_us if rows else None,
+            "device_kernels": sum(r[2] for r in rows),
+            "top": [{"name": k[:80], "device_ms": t / 1e3, "count": c}
+                    for t, k, c in rows[:8]]}
+
+
+def mamba2_phase(dev, cfg, batch: int, prompt: int, steps: int,
+                 card: str) -> dict:
+    """Slice D's path: ``prefill(use_kernel=True)`` of ``batch`` seeded
+    prompts, then ``steps`` greedy ``decode_step``s, held against the plain
+    prefill and the plain forward over the extended sequences on the same
+    device.  Returns the SSD kernel's launch and plain-call counts over the
+    kernel prefills."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = mamba2_params(cfg, seed=0, dev=dev)
+    n_params = transformer.param_count(params)
+    small = transformer.init_lm(cfg_base.reduced(cfg), 0, device=dev)
+    same_tree = [p for p, _ in tree_flatten_with_path(params)] == \
+        [p for p, _ in tree_flatten_with_path(small)]
+    del small
+    emit(phase="mamba2_setup", config=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, d_inner=transformer.mamba_spec(cfg).d_inner,
+         heads=transformer.mamba_spec(cfg).n_heads,
+         state_dim=cfg.ssm.state_dim, chunk=cfg.ssm.chunk,
+         vocab=cfg.vocab, padded_vocab=cfg.padded_vocab,
+         parameters=n_params, weight_bytes=4 * n_params, batch=batch,
+         prompt_len=prompt, decode_steps=steps, reference_tree=same_tree,
+         tf32="off (cudnn and matmul)")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, config "
+                                         f"says {cfg.param_count()}")
+    check(same_tree, "the drawn weights are not in init_lm's tree")
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                              .astype(np.int32)).to(dev)
+    max_len = prompt + steps + 1
+    with torch.inference_mode():
+        ssd.reset_counts()
+        prefill_s = []
+        for _ in range(2):          # the first includes cuBLAS warm-up
+            _sync(dev)
+            t0 = time.perf_counter()
+            last, caches = transformer.prefill(params, cfg, tokens, max_len=max_len,
+                                               use_kernel=True)
+            _sync(dev)
+            prefill_s.append(time.perf_counter() - t0)
+        counts, plain = dict(ssd.launches), dict(ssd.plain_calls)
+        _sync(dev)
+        t0 = time.perf_counter()
+        last_p, caches_p = transformer.prefill(params, cfg, tokens,
+                                               max_len=max_len,
+                                               use_kernel=False)
+        _sync(dev)
+        plain_prefill_s = time.perf_counter() - t0
+        # (a) kernel prefill == plain prefill: logits and every layer's state
+        e_logit = float((last - last_p).abs().max())
+        uk, up = caches["units"]["pos0"], caches_p["units"]["pos0"]
+        e_ssd = max(_rel_err(uk["ssd"][i], up["ssd"][i])
+                    for i in range(cfg.num_layers))
+        e_conv = max(_rel_err(uk["conv"][i], up["conv"][i])
+                     for i in range(cfg.num_layers))
+        del caches_p
+        emit(phase="mamba2_prefill_vs_plain", logits_max_abs_err=e_logit,
+             logits_tol=MAMBA_LOGIT_ATOL, ssd_state_max_rel_err=e_ssd,
+             conv_state_max_rel_err=e_conv, state_tol=MAMBA_STATE_REL,
+             logits_max_abs=float(last_p[..., :cfg.vocab].abs().max()))
+        check(e_logit <= MAMBA_LOGIT_ATOL,
+              f"kernel prefill logits vs plain: {e_logit}")
+        check(e_ssd <= MAMBA_STATE_REL and e_conv <= MAMBA_STATE_REL,
+              f"kernel prefill states vs plain: ssd {e_ssd}, conv {e_conv}")
+        check(bool(torch.isfinite(last).all())
+              and bool(torch.isfinite(last_p).all()),
+              "prefill logits not finite")
+
+        # greedy decode from the kernel prefill's caches
+        tok = last.argmax(-1).to(torch.int32)                 # [B, 1]
+        gen, step_logits, step_s = [tok], [], []
+        pos0 = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+        peak = {}
+        if cuda:
+            peak["prefill"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t_dec = time.perf_counter()
+        for i in range(steps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = transformer.decode_step(params, cfg, tok,
+                                                     pos0 + i, caches)
+            tok = logits.argmax(-1).to(torch.int32)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            step_logits.append(logits)
+            gen.append(tok)
+        decode_s = time.perf_counter() - t_dec
+        if cuda:
+            peak["decode"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        prof = {}
+        if cuda:
+            # profiled after the counts were read: not the path's launches
+            def four_steps(tok=tok, caches=caches):
+                for i in range(4):
+                    logits, caches = transformer.decode_step(
+                        params, cfg, tok, pos0 + steps + i, caches)
+                    tok = logits.argmax(-1).to(torch.int32)
+
+            prof["decode_4_steps"] = _profile(four_steps, dev)
+            prof["prefill"] = _profile(lambda: transformer.prefill(
+                params, cfg, tokens, max_len=max_len, use_kernel=True), dev)
+        del caches
+
+        # (b) every token == the plain forward's argmax over the extended
+        # sequence, where that forward's top-1/top-2 margin allows it
+        ext = torch.cat([tokens] + gen[:-1], dim=1)       # prompt + steps
+        t0 = time.perf_counter()
+        fwd, _ = transformer.forward(params, cfg, ext, use_kernel=False)
+        fwd = fwd[:, prompt - 1:]                          # [B, steps+1, V]
+        _sync(dev)
+        forward_s = time.perf_counter() - t0
+        if cuda:
+            peak["forward"] = torch.cuda.max_memory_allocated(dev)
+        got = torch.cat(gen, dim=1)                        # [B, steps+1]
+        top2 = fwd.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        differ = got != fwd.argmax(-1)
+        exempt = margin < MAMBA_MARGIN
+        dec_logits = torch.cat(step_logits, dim=1)
+        e_dec = float((dec_logits - fwd[:, 1:]).abs().max())
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (fwd, dec_logits))
+        emit(phase="mamba2_decode_vs_forward", tokens=int(got.numel()),
+             tokens_differing=int(differ.sum()),
+             differing_above_margin=int((differ & ~exempt).sum()),
+             positions_below_margin=int(exempt.sum()),
+             min_margin=float(margin.min()), margin_tol=MAMBA_MARGIN,
+             decode_logits_max_abs_err=e_dec, all_logits_finite=finite,
+             streams_distinct=len({tuple(r) for r in got.tolist()}))
+        check(not bool((differ & ~exempt).any()),
+              "greedy tokens differ from the plain forward's argmax above "
+              "the margin")
+        check(finite, "decode or forward logits not finite")
+    n_tok = batch * steps
+    emit(phase="mamba2", card=card, batch=batch, prompt_len=prompt,
+         prefill_s=prefill_s, plain_prefill_s=plain_prefill_s,
+         prefill_tokens_per_s=batch * prompt / prefill_s[-1],
+         decode_s=decode_s, decode_tokens_per_s=n_tok / decode_s,
+         step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
+         step_p99_ms=float(np.percentile(step_s, 99) * 1e3),
+         forward_s=forward_s,
+         peak_device_bytes=max(peak.values()) if peak else None,
+         peak_device_bytes_by_stage=peak,
+         kernels_per_decoded_token=(
+             prof["decode_4_steps"]["device_kernels"] / (4 * batch)
+             if prof else None),
+         profile=prof, ssd_launches=counts, ssd_plain_calls=plain,
+         phase_s=time.perf_counter() - t_phase)
+    return {"counts": counts, "plain": plain, "prefills": len(prefill_s)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the main path on the CPU at image 64; never "
+                    help="run the paths on the CPU at small sizes; never "
                          "prints a result")
     args = ap.parse_args()
     if args.cpu_rehearsal:
@@ -826,6 +1229,8 @@ def main() -> int:
                      kv_heads=2, head_dim=16, d_ff=128, cache_len=128)
         decode_phase(torch.device("cpu"), small, (16, 48), 8,
                      "cpu rehearsal")
+        mamba2_phase(torch.device("cpu"), mamba2_2_7b.smoke_config(), 2, 80,
+                     6, "cpu rehearsal")
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -839,6 +1244,7 @@ def main() -> int:
     build_kernels()
     errs = compare_kernels(dev)
     da_errs = compare_decode_attention(dev)
+    ssd_errs = compare_ssd_scan(dev)
     main = main_path(dev, 224, 1000, 8, card)
     t_dec = time.perf_counter()
     dec = decode_phase(dev, STARCODER2_3B, PROMPT_LEN, NEW_TOKENS, card)
@@ -847,12 +1253,25 @@ def main() -> int:
           "decode_attention was never launched on the decode path")
     check(dec["plain"]["decode_attention"] == 0,
           "decode attention ran its plain version on the decode path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = mamba2_2_7b.CONFIG
+    mam = mamba2_phase(dev, mcfg, MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS,
+                       card)
+    check(mam["counts"]["ssd_scan"] == mam["prefills"] * mcfg.num_layers,
+          f"ssd_scan launched {mam['counts']['ssd_scan']} times in "
+          f"{mam['prefills']} kernel prefills of {mcfg.num_layers} layers")
+    check(mam["plain"]["ssd_scan"] == 0,
+          "the SSD scan ran its plain version on the Mamba2 path")
+    gc.collect()
+    torch.cuda.empty_cache()
     shapes = sorted(set(main["shapes"]) | set(SWEEP))
     times = time_kernels(dev, shapes)
     cfg = STARCODER2_3B
     da_shape = (lm_graph.DECODE_STEP_ROWS, cfg["num_heads"], cfg["kv_heads"],
                 cfg["head_dim"], cfg["cache_len"])
     da_t = time_decode_attention(dev, *da_shape)
+    ssd_t = time_ssd_scan(dev, SSD_PATH)
     # the kernels line reports the largest grid one request puts on the
     # wire on the main path
     R, C = max(main["shapes"])
@@ -884,6 +1303,17 @@ def main() -> int:
         "plain_call_ms": da_t["plain_call_ms"],
         "library_call_ms": da_t["library_call_ms"],
         "shape": list(da_shape), "card": card})
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:71",
+        "launches": mam["counts"]["ssd_scan"],
+        "max_abs_err": ssd_errs["f32"], "max_abs_err_bf16": ssd_errs["bf16"],
+        "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
+        "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
+        "library_ms": None, "call_ms": ssd_t["call_ms"],
+        "plain_call_ms": ssd_t["plain_call_ms"], "shape": list(SSD_PATH),
+        "card": card})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

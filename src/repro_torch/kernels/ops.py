@@ -1,11 +1,11 @@
-"""Public wrappers around the port's kernels (twin of ``repro.kernels.ops``,
-block-quantization and decode-attention parts).
+"""Public wrappers around the port's kernels (twin of ``repro.kernels.ops``).
 
 Padding and reshaping to tile multiples live here so the kernels stay
 shape-exact; each call runs the CUDA kernel for a CUDA tensor and the
 plain PyTorch version for a CPU tensor (see
-:mod:`repro_torch.kernels.block_quant` and
-:mod:`repro_torch.kernels.decode_attention`).
+:mod:`repro_torch.kernels.block_quant`,
+:mod:`repro_torch.kernels.decode_attention` and
+:mod:`repro_torch.kernels.ssd_scan`).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import block_quant as _bq
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 # -- block quantization (wire compression for the DEFER pipeline) ---------------
@@ -61,3 +62,21 @@ def decode_attention(q, k, v, kpos, pos, window, scale):
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kpos = F.pad(kpos, (0, pad), value=-1)
     return _da.decode_attention(q, k, v, kpos, pos, window, scale)
+
+
+# -- SSD scan ----------------------------------------------------------------------
+
+def ssd_scan(xc, dtc, A, Bc, Cc, init_state):
+    """Chunked inputs -> (y [B, nc*Q, H, P], final_state [B,H,P,N]).
+
+    Matches the return convention of ``ssm.ssd_chunked``'s scan path:
+    callers trim padding rows themselves (they know S_orig).  ``A`` and
+    the state go to the kernel as float32, as the reference's wrapper
+    casts them, and every input contiguous (the model hands over slices
+    of one projection)."""
+    B, nc, Q, H, P = xc.shape
+    y, fin = _ssd.ssd_scan(
+        xc.contiguous(), dtc.contiguous(), A.to(torch.float32).contiguous(),
+        Bc.contiguous(), Cc.contiguous(),
+        init_state.to(torch.float32).contiguous())
+    return y.reshape(B, nc * Q, H, P), fin

@@ -2,12 +2,13 @@
 ``repro.kernels.ref``).
 
 Each function is the numerical ground truth its kernel is held against:
-the wrappers in :mod:`repro_torch.kernels.block_quant` and
-:mod:`repro_torch.kernels.decode_attention` run it for a CPU tensor, the
-CPU tests hold it against the JAX oracle (byte for byte for block
-quantization, to a stated tolerance for attention), and ``chip_smoke.py``
-holds the CUDA kernel against it on the card.  They are
-deliberately written in the most obvious way.
+the wrappers in :mod:`repro_torch.kernels.block_quant`,
+:mod:`repro_torch.kernels.decode_attention` and
+:mod:`repro_torch.kernels.ssd_scan` run it for a CPU tensor, the CPU
+tests hold it against the JAX oracle (byte for byte for block
+quantization, to a stated tolerance for attention and the SSD scan), and
+``chip_smoke.py`` holds the CUDA kernel against it on the card.  They
+are deliberately written in the most obvious way.
 """
 from __future__ import annotations
 
@@ -96,3 +97,44 @@ def decode_attention_ref(q, k, v, kpos, pos, window, scale):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", w, vf)
     return out.reshape(B, 1, H, hd)
+
+
+# -- SSD (Mamba2) chunked scan ---------------------------------------------------
+
+def ssd_scan_ref(xc, dtc, A, Bc, Cc, init_state):
+    """Chunked state-space-dual scan (arXiv:2405.21060), plain PyTorch.
+
+    xc [B,nc,Q,H,P]; dtc [B,nc,Q,H] (>0); A [H] (<0); Bc/Cc [B,nc,Q,N]
+    (single B/C group broadcast over heads); init_state [B,H,P,N].
+    Returns (y [B,nc,Q,H,P] in xc.dtype, final_state [B,H,P,N] f32).
+    A Python loop over chunks, f32 throughout.  The causal mask is applied
+    BEFORE the exp: above the diagonal ``cum_i - cum_j`` is a positive sum
+    of ``dt*|A|``, whose exp overflows to inf once a chunk's sum passes ~88
+    (and inf * 0 is NaN).
+    """
+    Q = xc.shape[2]
+    f32 = torch.float32
+    A = A.to(f32)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=xc.device))
+    state = init_state.to(f32)
+    ys = []
+    for c in range(xc.shape[1]):
+        xq = xc[:, c].to(f32)                                # [B,Q,H,P]
+        dtq = dtc[:, c].to(f32)                              # [B,Q,H]
+        Bq, Cq = Bc[:, c].to(f32), Cc[:, c].to(f32)          # [B,Q,N]
+        cum = torch.cumsum(dtq * A, dim=1)                   # [B,Q,H]
+        diff = cum[:, :, None, :] - cum[:, None, :, :]       # [B,Q,Q,H]
+        Lmat = torch.exp(torch.where(causal[None, :, :, None], diff,
+                                     -torch.inf))
+        CB = torch.einsum("bqn,bsn->bqs", Cq, Bq)
+        scores = CB[:, :, :, None] * Lmat * dtq[:, None, :, :]
+        y = torch.einsum("bqsh,bshp->bqhp", scores, xq)
+        y = y + torch.einsum("bqn,bhpn->bqhp", Cq, state) \
+            * torch.exp(cum)[:, :, :, None]
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)
+        dx = xq * (dtq * decay_to_end)[..., None]
+        state = state * torch.exp(cum[:, -1])[:, :, None, None] \
+            + torch.einsum("bqhp,bqn->bhpn", dx, Bq)
+        ys.append(y.to(xc.dtype))
+    return torch.stack(ys, dim=1), state

@@ -30,6 +30,11 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.kernels.decode_attention",
                  "repro_torch.models.layers", "repro_torch.models.attention",
                  "repro_torch.models.lm_graph",
+                 "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+                 "repro_torch.models.transformer",
+                 "repro_torch.configs.base", "repro_torch.configs.registry",
+                 "repro_torch.configs.mamba2_2_7b",
+                 "repro_torch.configs.zamba2_2_7b",
                  "repro_torch.runtime.wire", "repro_torch.runtime.transport",
                  "repro_torch.runtime.session", "repro_torch.runtime.node",
                  "repro_torch.runtime.topology", "repro_torch.runtime.router",
