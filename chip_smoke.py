@@ -13,15 +13,18 @@ Phases, each printing JSON records on their own lines:
    quantization byte for byte at the wire shapes and on edge-case tiles
    (the subnormal tiles also against the reference's pinned values),
    decode attention within 1e-5 (f32) / 2e-2 (bf16) on the reference's
-   sweep, the decode path's shapes and an all-empty cache, the SSD scan
-   on the reference's sweep (its bars 1e-4 / 5e-2), Mamba2-2.7B's
+   sweep, the zoo's widest heads (G 2 at hd 256, G 48 at hd 128, G 5 at
+   hd 96 with a padded C), the decode path's shapes and an all-empty
+   cache, and batch-invariant bit for bit at G 12, 48 and hd 256; the SSD
+   scan on the reference's sweep (its bars 1e-4 / 5e-2), Mamba2-2.7B's
    prefill shape, a ragged 100-token chunk and a chunk whose decay
    overflows the TPU kernel (finite), and 4 chunks against 2 + 2; after
    the main paths, each kernel is timed with CUDA events at the path's
    shapes, on the device (calls captured in a CUDA graph and replayed)
    and per call from Python, with inputs rotated through more than the
    50 MB L2, beside its bound, its plain version and, for decode
-   attention, ``scaled_dot_product_attention``;
+   attention (at slice C's, gemma3-4b's and granite-34b's shapes),
+   ``scaled_dot_product_attention``;
 4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
    with one replicated stage, served by ``InferenceEngine(device="cuda")``
@@ -49,14 +52,27 @@ Phases, each printing JSON records on their own lines:
    every token must equal the plain ``forward``'s argmax over the
    extended sequences wherever its top-1/top-2 margin clears the stated
    bar; the SSD kernel must launch once per layer and prefill and its
-   plain version must not run.
+   plain version must not run;
+7. slice E's path, the LM zoo's attention decode: gemma3-4b at its
+   published widths and depth (34 layers, 8 query over 4 kv heads of 256,
+   windows 1024 x5 then global, vocab 262144) with 4 prompts of 1536
+   tokens, and granite-34b at its published widths cut to 8 of its 88
+   layers (48 query heads over one kv head of 128) with 4 prompts of
+   1024, each through ``transformer.prefill`` and 32 greedy
+   ``decode_step(..., use_kernel=True)``s (f32, seeded fan-in weights
+   drawn on the card).  Every step's logits must match
+   ``decode_step(use_kernel=False)`` from a copy of the same caches;
+   every token must equal the plain ``forward``'s argmax wherever its
+   top-1/top-2 margin clears the stated bar; decode attention must
+   launch once per attention layer and step and its plain version must
+   not run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phases 4, 5 and 6 on the CPU at small sizes (no
-kernel build), to rehearse the control flow without a card; it never
-prints a result and exits 3.
+``--cpu-rehearsal`` runs phases 4 to 7 on the CPU at small sizes (no
+kernel build; slice E with its head geometry kept), to rehearse the
+control flow without a card; it never prints a result and exits 3.
 """
 from __future__ import annotations
 
@@ -86,7 +102,7 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.configs import base as cfg_base  # noqa: E402
-from repro_torch.configs import mamba2_2_7b  # noqa: E402
+from repro_torch.configs import gemma3_4b, granite_34b, mamba2_2_7b  # noqa: E402
 from repro_torch.models import cnn, lm_graph, transformer  # noqa: E402
 from repro_torch.runtime import (DispatcherCodecs, InferenceEngine,  # noqa: E402
                                  TopologySpec, WireCodec)
@@ -101,10 +117,19 @@ ZFP_REL = 0.15          # the reference's bar for ZFP-16 + LZ4
 DA_F32_ATOL = 1e-5      # decode attention kernel vs plain (f32)
 DA_BF16_ATOL = 2e-2     # the reference sweep's bar for bf16 inputs
 # decode attention shapes (B, H, kv, hd, C): the reference's sweep
-# (tests/test_kernels.py) and the decode path's at batch 1 and 8
+# (tests/test_kernels.py); the zoo's widest heads at slice E's shapes
+# (gemma3-4b's local and global layers, granite-34b's), one split at B=1,
+# and G 5 at hd 96 with a C that ops.decode_attention pads; then the
+# decode path's at batch 1 and 8
 DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
-            (1, 16, 4, 80, 640)]
+            (1, 16, 4, 80, 640), (4, 8, 4, 256, 1024), (4, 8, 4, 256, 2048),
+            (4, 48, 1, 128, 2048), (1, 48, 1, 128, 256), (2, 40, 8, 96, 650)]
 DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
+# batch invariance at B=8: slice C's heads, granite-34b's and gemma3-4b's
+DA_INVARIANCE = [(8, 24, 2, 128, 4096), (8, 48, 1, 128, 2048),
+                 (8, 8, 4, 256, 2048)]
+# timed beside slice C's step shape: slice E's global layers at B=4
+DA_ZOO_TIMED = [(4, 8, 4, 256, 2048), (4, 48, 1, 128, 2048)]
 # StarCoder2-3B (arXiv:2402.19173; src/repro/configs/starcoder2_3b.py) in
 # the reference's decode graph: a 4096-slot cache, its sliding window
 STARCODER2_3B = dict(vocab=49152, d_model=3072, n_layers=30, num_heads=24,
@@ -139,6 +164,27 @@ SSD_RAGGED = (4, 1, 100, 80, 64, 128)
 # least MAMBA_MARGIN (twice the logit bar: both logits may move).
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 4, 2048, 32
 MAMBA_LOGIT_ATOL, MAMBA_STATE_REL, MAMBA_MARGIN = 5e-3, 5e-3, 1e-2
+# Slice E, the LM zoo's attention decode: gemma3-4b (hf:google/gemma-3-1b-pt;
+# src/repro_torch/configs/gemma3_4b.py) at its published widths and depth;
+# granite-34b (arXiv:2405.04324) at its published widths, cut to 8 of its
+# 88 layers: the whole model is ~134 GB in f32 and the card holds 80 GB.
+# (config, prompt length, the cut); 4 prompts, 32 greedy steps, caches of
+# 2048 slots (gemma3-4b's local layers hold their 1024-slot window).
+ZOO_RUNS = [(gemma3_4b.CONFIG, 1536, None),
+            (dataclasses.replace(granite_34b.CONFIG, num_layers=8), 1024,
+             "num_layers 88 -> 8: ~134 GB of f32 weights at full depth do "
+             "not fit one 80 GB card")]
+# Kernel decode_step vs plain decode_step from the same caches: the two
+# attentions differ by at most DA_F32_ATOL (1e-5) per output element; a
+# CPU run at these depths and head shapes (d_model 512 / 1024) with every
+# attention output moved by uniform noise of 1e-5 moved the logits (|x| up
+# to 2.6) by at most 1.1e-4, 2.5e-4 scaled to full width: the bar is 1e-3.
+# Greedy tokens vs the plain forward: decode and forward logits must agree
+# within half the margin bar (other GEMM shapes and attention code, summed
+# in other orders), and a token must equal the forward's argmax wherever
+# its top-1/top-2 margin is at least ZOO_MARGIN (both logits may move).
+ZOO_BATCH, ZOO_STEPS, ZOO_MAX_LEN = 4, 32, 2048
+ZOO_STEP_ATOL, ZOO_MARGIN = 1e-3, 1e-2
 # subnormal tiles [a, -a/2, 0.3a, 0...]: (a, q of the first 3, scale) as
 # the reference computes them (XLA reads subnormals as zero and flushes a
 # subnormal scale; a TPU has none)
@@ -316,6 +362,27 @@ def compare_decode_attention(dev) -> dict:
     return err
 
 
+def check_da_batch_invariance(dev) -> None:
+    """Row 3 of a B=8 call, computed alone, is bit-identical to the same
+    row computed stacked (rows at different fill levels), f32 and bf16."""
+    for i, (B, H, kv, hd, C) in enumerate(DA_INVARIANCE):
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v, kpos, pos = _da_inputs(
+                B, H, kv, hd, C, 80 + i, dev, dtype,
+                [C // 8 + (C // 9) * b for b in range(B)])
+            full = da.decode_attention(q, k, v, kpos, pos, None,
+                                       1.0 / math.sqrt(hd))
+            one = da.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4],
+                                      pos[3:4], None, 1.0 / math.sqrt(hd))
+            torch.cuda.synchronize()
+            same = bool(torch.equal(full[3:4], one))
+            emit(phase="decode_attention_batch_invariance",
+                 shape=[B, H, kv, hd, C], dtype=name, row=3,
+                 bit_identical=same)
+            check(same, f"decode attention row 3 alone != stacked at "
+                        f"{[B, H, kv, hd, C]} {name}")
+
+
 def _call_ms(fn, args_list, iters: int = 200) -> float:
     """Mean time per call of ``fn(*args)`` issued back to back from Python,
     cycling through ``args_list`` (enough buffers to exceed the L2 cache):
@@ -421,7 +488,7 @@ def _da_bounds(B, H, kv, hd, C) -> dict:
 def time_decode_attention(dev, B, H, kv, hd, C) -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` (the
     library yardstick, never called by the port) on a FULL f32 cache at
-    the decode path's shape, inputs rotated through more than the L2."""
+    a decode path's shape, inputs rotated through more than the L2."""
     scale = 1.0 / math.sqrt(hd)
     per = 4 * (2 * B * C * kv * hd)
     nbuf = max(2, -(-(128 << 20) // per))
@@ -883,12 +950,12 @@ def profile_window(eng, prompts, want, new_tokens, dev) -> None:
     that take it.  Launches here are not counted for the path."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         outs, rec = _generate_all(eng, prompts, new_tokens, rescale=False)
         torch.cuda.synchronize(dev)
-    wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     check(all(o == w[:new_tokens] for o, w in zip(outs, want)),
           "profiled window: tokens differ from the reference")
     rows = _kernel_rows(prof)
@@ -1041,15 +1108,17 @@ def _rel_err(a, b) -> float:
 
 def _profile(fn, dev) -> dict:
     """``fn()`` under ``torch.profiler``: the device's kernels, their count
-    and the card's busy share of the wall time."""
+    and the card's busy share of the wall time (timed inside the profiled
+    region: the profiler's start and its processing at the end are not
+    the program's time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
-    wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     return {"wall_s": wall_us / 1e6, "device_busy_s": busy / 1e6,
@@ -1057,6 +1126,52 @@ def _profile(fn, dev) -> dict:
             "device_kernels": sum(r[2] for r in rows),
             "top": [{"name": k[:80], "device_ms": t / 1e3, "count": c}
                     for t, k, c in rows[:8]]}
+
+
+def check_against_forward(params, cfg, tokens, gen: list, step_logits: list,
+                          margin_tol: float, dev, phase: str,
+                          peak: dict) -> float:
+    """Greedy decode against the plain ``forward`` over the extended
+    sequences: every token (``gen``: the prefill's, then each step's) must
+    equal the forward's argmax wherever its top-1/top-2 margin is at least
+    ``margin_tol``, and the decode logits lie within half of it of the
+    forward's; every logit finite, the streams distinct.  Records the
+    peak device memory under ``peak["forward"]``; returns the forward's
+    seconds."""
+    prompt = tokens.shape[1]
+    ext = torch.cat([tokens] + gen[:-1], dim=1)           # prompt + steps
+    t0 = time.perf_counter()
+    full, _ = transformer.forward(params, cfg, ext, use_kernel=False)
+    fwd = full[:, prompt - 1:].clone()                     # [B, steps+1, V]
+    del full                                # a large vocab's logits: free
+    _sync(dev)
+    forward_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        peak["forward"] = torch.cuda.max_memory_allocated(dev)
+    got = torch.cat(gen, dim=1)                            # [B, steps+1]
+    top2 = fwd.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = got != fwd.argmax(-1)
+    exempt = margin < margin_tol
+    dec_logits = torch.cat(step_logits, dim=1)
+    e_dec = float((dec_logits - fwd[:, 1:]).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (fwd, dec_logits))
+    distinct = len({tuple(r) for r in got.tolist()})
+    emit(phase=phase, tokens=int(got.numel()),
+         tokens_differing=int(differ.sum()),
+         differing_above_margin=int((differ & ~exempt).sum()),
+         positions_below_margin=int(exempt.sum()),
+         min_margin=float(margin.min()), margin_tol=margin_tol,
+         decode_logits_max_abs_err=e_dec, all_logits_finite=finite,
+         streams_distinct=distinct)
+    check(not bool((differ & ~exempt).any()),
+          "greedy tokens differ from the plain forward's argmax above "
+          "the margin")
+    check(e_dec <= margin_tol / 2, f"decode logits vs forward: {e_dec}")
+    check(finite, "decode or forward logits not finite")
+    check(distinct == got.shape[0], "different prompts gave identical "
+                                    "token streams")
+    return forward_s
 
 
 def mamba2_phase(dev, cfg, batch: int, prompt: int, steps: int,
@@ -1170,34 +1285,9 @@ def mamba2_phase(dev, cfg, batch: int, prompt: int, steps: int,
 
         # (b) every token == the plain forward's argmax over the extended
         # sequence, where that forward's top-1/top-2 margin allows it
-        ext = torch.cat([tokens] + gen[:-1], dim=1)       # prompt + steps
-        t0 = time.perf_counter()
-        fwd, _ = transformer.forward(params, cfg, ext, use_kernel=False)
-        fwd = fwd[:, prompt - 1:]                          # [B, steps+1, V]
-        _sync(dev)
-        forward_s = time.perf_counter() - t0
-        if cuda:
-            peak["forward"] = torch.cuda.max_memory_allocated(dev)
-        got = torch.cat(gen, dim=1)                        # [B, steps+1]
-        top2 = fwd.topk(2, dim=-1).values
-        margin = top2[..., 0] - top2[..., 1]
-        differ = got != fwd.argmax(-1)
-        exempt = margin < MAMBA_MARGIN
-        dec_logits = torch.cat(step_logits, dim=1)
-        e_dec = float((dec_logits - fwd[:, 1:]).abs().max())
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in (fwd, dec_logits))
-        emit(phase="mamba2_decode_vs_forward", tokens=int(got.numel()),
-             tokens_differing=int(differ.sum()),
-             differing_above_margin=int((differ & ~exempt).sum()),
-             positions_below_margin=int(exempt.sum()),
-             min_margin=float(margin.min()), margin_tol=MAMBA_MARGIN,
-             decode_logits_max_abs_err=e_dec, all_logits_finite=finite,
-             streams_distinct=len({tuple(r) for r in got.tolist()}))
-        check(not bool((differ & ~exempt).any()),
-              "greedy tokens differ from the plain forward's argmax above "
-              "the margin")
-        check(finite, "decode or forward logits not finite")
+        forward_s = check_against_forward(params, cfg, tokens, gen,
+                                          step_logits, MAMBA_MARGIN, dev,
+                                          "mamba2_decode_vs_forward", peak)
     n_tok = batch * steps
     emit(phase="mamba2", card=card, batch=batch, prompt_len=prompt,
          prefill_s=prefill_s, plain_prefill_s=plain_prefill_s,
@@ -1216,6 +1306,197 @@ def mamba2_phase(dev, cfg, batch: int, prompt: int, steps: int,
     return {"counts": counts, "plain": plain, "prefills": len(prefill_s)}
 
 
+# -- phase 7: slice E's path, the LM zoo's attention decode ------------------------
+
+def dense_params(cfg, seed: int, dev) -> dict:
+    """Seeded fan-in weights in ``init_lm``'s tree for the ``dense`` family,
+    drawn on ``dev`` with an explicit generator: He-init ``w ~ N(0,
+    2/fan_in)`` for every projection, norm scales 1, the embedding ``N(0,
+    0.02)`` with zero pad-vocab rows (and an untied head's pad columns).
+
+    The MLP's down projection is centred over its fan-in (each output's
+    weights sum to 0).  A GELU's output has a positive mean, so an
+    uncentred random down projection adds one fixed vector at every
+    position of every layer; at granite-34b's widths that vector decides
+    the argmax, and different prompts decode the same tokens (2 distinct
+    streams of 4 on the card).  A trained model does not do that."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    s = transformer.attn_spec(cfg, None)
+    d, f, hq, hkv = cfg.d_model, cfg.d_ff, s.num_heads * s.head_dim, \
+        s.kv_heads * s.head_dim
+    n_units, rem = divmod(cfg.num_layers, cfg.unit_layers)
+
+    def he(n, fan_in, fan_out):
+        return {"w": torch.randn((n, fan_in, fan_out), generator=gen,
+                                 device=dev).mul_(math.sqrt(2.0 / fan_in))}
+
+    def norm(*shape):
+        return {"scale": torch.ones(shape, device=dev)}
+
+    def layers(n):
+        down = he(n, f, d)
+        down["w"] -= down["w"].mean(dim=1, keepdim=True)
+        mlp = {"ln": norm(n, d), "up": he(n, d, f), "down": down}
+        if cfg.gated_mlp:
+            mlp["gate"] = he(n, d, f)
+        return {"attn": {"ln": norm(n, d), "wq": he(n, d, hq),
+                         "wk": he(n, d, hkv), "wv": he(n, d, hkv),
+                         "wo": he(n, hq, d)}, "mlp": mlp}
+
+    table = torch.zeros((cfg.padded_vocab, d), device=dev)
+    table[:cfg.vocab] = torch.randn((cfg.vocab, d), generator=gen,
+                                    device=dev).mul_(0.02)
+    params = {"embed": {"table": table},
+              "units": {f"pos{i}": layers(n_units)
+                        for i in range(cfg.unit_layers)},
+              "final_ln": norm(d)}
+    if rem:
+        params["rem"] = {"pos0": layers(rem)}
+    if not cfg.tie_embeddings:
+        w = he(1, d, cfg.padded_vocab)["w"][0]
+        w[:, cfg.vocab:] = 0.0
+        params["unembed"] = {"w": w}
+    return params
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def zoo_decode_phase(dev, cfg, batch: int, prompt: int, steps: int,
+                     max_len: int, card: str, cut: str | None) -> dict:
+    """Slice E's path: ``prefill`` of ``batch`` seeded prompts, then
+    ``steps`` greedy ``decode_step(use_kernel=True)``s.  Each step's logits
+    are held against ``decode_step(use_kernel=False)`` run from a copy of
+    the same caches, and every token against the plain forward.  Returns
+    decode attention's launch and plain-call counts over the kernel
+    steps, and the launches they should be (one per attention layer and
+    step)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = dense_params(cfg, seed=0, dev=dev)
+    _sync(dev)
+    weights_s = time.perf_counter() - t0
+    n_params = transformer.param_count(params)
+    # init_lm's tree at the same depth and windows, at a small width
+    small = transformer.init_lm(cfg_base.reduced(
+        cfg, num_layers=cfg.num_layers, window_pattern=cfg.window_pattern),
+        0, device=dev)
+    same_tree = [p for p, _ in tree_flatten_with_path(params)] == \
+        [p for p, _ in tree_flatten_with_path(small)]
+    del small
+    s = transformer.attn_spec(cfg, None)
+    attn_layers = cfg.num_layers
+    emit(phase="zoo_setup", config=cfg.name, source=cfg.source, cut=cut,
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=s.num_heads,
+         kv_heads=s.kv_heads, group=s.num_heads // s.kv_heads,
+         head_dim=s.head_dim, d_ff=cfg.d_ff, gated_mlp=cfg.gated_mlp,
+         vocab=cfg.vocab, windows=list(cfg.window_pattern),
+         attention_layers=attn_layers, parameters=n_params,
+         weight_bytes=4 * n_params, weights_s=weights_s, batch=batch,
+         prompt_len=prompt, decode_steps=steps, max_len=max_len,
+         reference_tree=same_tree, tf32="off (cudnn and matmul)")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, config "
+                                         f"says {cfg.param_count()}")
+    check(same_tree, "the drawn weights are not in init_lm's tree")
+    check(cfg.family == "dense", f"{cfg.name}: not a dense config")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                              .astype(np.int32)).to(dev)
+    peak = {}
+    with torch.inference_mode():
+        prefill_s = []
+        for _ in range(2):          # the first includes cuBLAS warm-up
+            _sync(dev)
+            t0 = time.perf_counter()
+            last, caches = transformer.prefill(params, cfg, tokens,
+                                               max_len=max_len)
+            _sync(dev)
+            prefill_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(last).all()), "prefill logits not finite")
+        if cuda:
+            peak["prefill"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        # greedy decode with the kernel; each step also run plain from a
+        # copy of the caches it started from
+        tok = last.argmax(-1).to(torch.int32)                 # [B, 1]
+        gen, step_logits, step_s, plain_s, step_err = [tok], [], [], [], []
+        pos0 = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+        da.reset_counts()
+        for i in range(steps):
+            before = _clone(caches)
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = transformer.decode_step(
+                params, cfg, tok, pos0 + i, caches, use_kernel=True)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            plain, _ = transformer.decode_step(params, cfg, tok, pos0 + i,
+                                               before, use_kernel=False)
+            _sync(dev)
+            plain_s.append(time.perf_counter() - t0)
+            step_err.append(float((logits - plain).abs().max()))
+            del before, plain
+            tok = logits.argmax(-1).to(torch.int32)
+            step_logits.append(logits)
+            gen.append(tok)
+        counts, plain_calls = dict(da.launches), dict(da.plain_calls)
+        if cuda:
+            peak["decode"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        emit(phase="zoo_kernel_vs_plain_step", config=cfg.name,
+             steps=steps, max_abs_err=max(step_err), tol=ZOO_STEP_ATOL,
+             per_step=step_err,
+             logits_max_abs=float(torch.cat(step_logits).abs().max()))
+        check(max(step_err) <= ZOO_STEP_ATOL,
+              f"{cfg.name}: kernel decode_step vs plain: {max(step_err)}")
+        prof = {}
+        if cuda:
+            # profiled after the counts were read: not the path's launches
+            def four_steps(tok=tok, caches=caches):
+                for i in range(4):
+                    logits, caches = transformer.decode_step(
+                        params, cfg, tok, pos0 + steps + i, caches,
+                        use_kernel=True)
+                    tok = logits.argmax(-1).to(torch.int32)
+
+            prof["decode_4_steps"] = _profile(four_steps, dev)
+        del caches, last
+        forward_s = check_against_forward(params, cfg, tokens, gen,
+                                          step_logits, ZOO_MARGIN, dev,
+                                          "zoo_decode_vs_forward", peak)
+    del params
+    n_tok = batch * steps
+    emit(phase="zoo", config=cfg.name, card=card, cut=cut, batch=batch,
+         prompt_len=prompt, prefill_s=prefill_s,
+         prefill_tokens_per_s=batch * prompt / prefill_s[-1],
+         decode_s=sum(step_s), decode_tokens_per_s=n_tok / sum(step_s),
+         step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
+         step_p99_ms=float(np.percentile(step_s, 99) * 1e3),
+         plain_step_p50_ms=float(np.percentile(plain_s, 50) * 1e3),
+         forward_s=forward_s,
+         peak_device_bytes=max(peak.values()) if peak else None,
+         peak_device_bytes_by_stage=peak,
+         kernels_per_decoded_token=(
+             prof["decode_4_steps"]["device_kernels"] / (4 * batch)
+             if prof else None),
+         profile=prof, decode_attention_launches=counts,
+         decode_attention_plain_calls=plain_calls,
+         phase_s=time.perf_counter() - t_phase)
+    return {"counts": counts, "plain": plain_calls,
+            "want": attn_layers * steps}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1231,6 +1512,16 @@ def main() -> int:
                      "cpu rehearsal")
         mamba2_phase(torch.device("cpu"), mamba2_2_7b.smoke_config(), 2, 80,
                      6, "cpu rehearsal")
+        # slice E at smoke widths with the zoo's head geometry: gemma3-4b's
+        # window (32 here) wraps in prefill and decode
+        for cfg, heads, prompt in (
+                (gemma3_4b.CONFIG, dict(num_heads=8, kv_heads=4,
+                                        head_dim=256), 48),
+                (granite_34b.CONFIG, dict(num_heads=48, kv_heads=1,
+                                          head_dim=128), 40)):
+            zoo_decode_phase(torch.device("cpu"),
+                             cfg_base.reduced(cfg, **heads), 2, prompt, 6, 64,
+                             "cpu rehearsal", "smoke widths")
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -1244,6 +1535,7 @@ def main() -> int:
     build_kernels()
     errs = compare_kernels(dev)
     da_errs = compare_decode_attention(dev)
+    check_da_batch_invariance(dev)
     ssd_errs = compare_ssd_scan(dev)
     main = main_path(dev, 224, 1000, 8, card)
     t_dec = time.perf_counter()
@@ -1265,12 +1557,29 @@ def main() -> int:
           "the SSD scan ran its plain version on the Mamba2 path")
     gc.collect()
     torch.cuda.empty_cache()
+    zoo = {}
+    for cfg, prompt, cut in ZOO_RUNS:
+        t_zoo = time.perf_counter()
+        z = zoo_decode_phase(dev, cfg, ZOO_BATCH, prompt, ZOO_STEPS,
+                             ZOO_MAX_LEN, card, cut)
+        emit(phase="zoo_phase_done", config=cfg.name,
+             seconds=time.perf_counter() - t_zoo)
+        check(z["counts"]["decode_attention"] == z["want"],
+              f"{cfg.name}: decode_attention launched "
+              f"{z['counts']['decode_attention']} times, want {z['want']} "
+              "(one per attention layer and step)")
+        check(z["plain"]["decode_attention"] == 0,
+              f"{cfg.name}: decode attention ran its plain version")
+        zoo[cfg.name] = z["counts"]["decode_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
     shapes = sorted(set(main["shapes"]) | set(SWEEP))
     times = time_kernels(dev, shapes)
     cfg = STARCODER2_3B
     da_shape = (lm_graph.DECODE_STEP_ROWS, cfg["num_heads"], cfg["kv_heads"],
                 cfg["head_dim"], cfg["cache_len"])
     da_t = time_decode_attention(dev, *da_shape)
+    da_zoo_t = [time_decode_attention(dev, *sh) for sh in DA_ZOO_TIMED]
     ssd_t = time_ssd_scan(dev, SSD_PATH)
     # the kernels line reports the largest grid one request puts on the
     # wire on the main path
@@ -1295,14 +1604,21 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:74",
-        "launches": dec["counts"]["decode_attention"],
+        "launches": dec["counts"]["decode_attention"] + sum(zoo.values()),
+        "launches_by_path": dict(decode_serve=dec["counts"]["decode_attention"],
+                                 **zoo),
         "max_abs_err": da_errs["f32"], "max_abs_err_bf16": da_errs["bf16"],
         "ms": da_t["ms"], "plain_ms": da_t["plain_ms"],
         "bound_ms": da_t["bound_ms"], "bound_by": da_t["bound_by"],
         "library_ms": da_t["library_ms"], "call_ms": da_t["call_ms"],
         "plain_call_ms": da_t["plain_call_ms"],
         "library_call_ms": da_t["library_call_ms"],
-        "shape": list(da_shape), "card": card})
+        "shape": list(da_shape),
+        "other_shapes": [{k: t[k] for k in (
+            "shape", "ms", "call_ms", "plain_ms", "plain_call_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call_ms")}
+            for t in da_zoo_t],
+        "card": card})
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

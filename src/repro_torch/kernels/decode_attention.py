@@ -7,9 +7,11 @@ KV cache with a ``kpos`` sidecar (-1 = empty slot) and an optional window;
 the softmax runs online in f32 with masked logits at -1e30.
 
 The kernel splits the cache length into ``SPLIT_C``-slot chunks, one CTA
-per (chunk, kv head, row), and combines the chunks in a fixed order, so a
-row's result never depends on the batch it is stacked in.  It takes a C
-that is a multiple of ``BLOCK_C`` (:func:`repro_torch.kernels.ops.decode_attention`
+per (chunk, kv head and group of query rows, row), and combines the chunks
+in a fixed order, so a row's result never depends on the batch it is
+stacked in.  It takes any group size G = H/kv, any head_dim up to
+``MAX_HD`` (the wrapper raises above it, on any device) and a C that is a
+multiple of ``BLOCK_C`` (:func:`repro_torch.kernels.ops.decode_attention`
 pads the cache with ``kpos = -1``).
 
 A wrapper given CPU tensors runs the plain PyTorch version
@@ -27,8 +29,7 @@ from repro_torch.kernels import ref
 
 BLOCK_C = 32          # cache slots per shared-memory tile (csrc kTile)
 SPLIT_C = 256         # cache slots per CTA: the split depends on C only
-MAX_G = 32            # query rows per kv head (csrc kMaxG)
-MAX_HD = 128          # head_dim (csrc kMaxHd)
+MAX_HD = 256          # head_dim (csrc kMaxHd); any number of query rows
 
 launches = {"decode_attention": 0}
 plain_calls = {"decode_attention": 0}
@@ -77,6 +78,9 @@ def _check_shapes(q, k, v, kpos, pos, window) -> tuple[int, ...]:
                          f"{tuple(pos.shape)} do not match B={B}, C={C}")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} must be >= 1")
+    if hd > MAX_HD:
+        raise ValueError(f"decode_attention: head_dim {hd} is above the "
+                         f"kernel's limit of {MAX_HD}")
     return B, H, hd, C, kv
 
 
@@ -106,10 +110,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: tensors must be contiguous")
     G = H // kv
-    if G > MAX_G or hd > MAX_HD or C % BLOCK_C:
-        raise ValueError(f"decode_attention: G={G} (max {MAX_G}), hd={hd} "
-                         f"(max {MAX_HD}), C={C} (a multiple of {BLOCK_C}) "
-                         "are outside what the kernel takes")
+    if C % BLOCK_C:
+        raise ValueError(f"decode_attention: C={C} is not a multiple of "
+                         f"{BLOCK_C} (ops.decode_attention pads it)")
     n = splits(C)
     part_acc = torch.empty((B, kv, n, G, hd), dtype=torch.float32, device=dev)
     part_ml = torch.empty((B, kv, n, G, 2), dtype=torch.float32, device=dev)

@@ -238,8 +238,11 @@ def test_init_cache_and_attn_flops_match_jax():
 
 # -- decode attention: the plain version and the wrappers ------------------------
 
+# tests/test_kernels.py's sweep, then the zoo's widest heads: gemma3-4b's
+# (G 2 at hd 256), granite-34b's (MQA, G 48) and G 5 at hd 96
 SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
-         (1, 16, 4, 80, 640)]                      # tests/test_kernels.py
+         (1, 16, 4, 80, 640), (2, 8, 4, 256, 1024), (1, 48, 1, 128, 512),
+         (2, 40, 8, 96, 640)]
 
 
 def _da_inputs(B, H, kv, hd, C, seed=0, empty=50):
@@ -332,6 +335,28 @@ def test_decode_attention_wrapper_checks_its_inputs():
     assert tda.splits(4096) == 16 and tda.splits(100) == 1
 
 
+def test_decode_attention_limits_equal_the_kernel_source():
+    """The wrapper's constants are the CUDA source's, and a head_dim above
+    the kernel's limit raises (on the CPU too) with the limit named."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tda.__file__), "csrc",
+                            "decode_attention.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert tda.BLOCK_C == const("kTile") == 32
+    assert tda.MAX_HD == const("kMaxHd") == 256
+    assert not hasattr(tda, "MAX_G") and "kMaxG" not in src
+    ok = [torch.from_numpy(a) for a in _da_inputs(1, 48, 1, 256, 64)]
+    assert tops.decode_attention(*ok, None, 0.1).shape == (1, 1, 48, 256)
+    q, k, v, kpos, pos = (torch.from_numpy(a) for a in
+                          _da_inputs(1, 2, 1, 264, 64))
+    with pytest.raises(ValueError, match="limit of 256"):
+        tda.decode_attention(q, k, v, kpos, pos, None, 0.1)
+
+
 # -- the CUDA kernel against its plain version (needs a card) ------------------
 
 @pytest.fixture
@@ -343,7 +368,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,kv,hd,C", SWEEP + [(8, 24, 2, 128, 4096)])
+@pytest.mark.parametrize("B,H,kv,hd,C", SWEEP + [(8, 24, 2, 128, 4096),
+                                                 (4, 48, 1, 128, 2048),
+                                                 (4, 8, 4, 256, 2048)])
 @pytest.mark.parametrize("window", [None, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_attention_matches_plain_version(cuda_device, B, H, kv,
@@ -361,10 +388,13 @@ def test_cuda_decode_attention_matches_plain_version(cuda_device, B, H, kv,
 
 
 @pytest.mark.cuda
-def test_cuda_decode_attention_is_batch_invariant(cuda_device):
+@pytest.mark.parametrize("H,kv,hd,C", [(24, 2, 128, 4096), (48, 1, 128, 2048),
+                                       (8, 4, 256, 2048)])
+def test_cuda_decode_attention_is_batch_invariant(cuda_device, H, kv, hd, C):
     q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
-                          for a in _da_inputs(8, 24, 2, 128, 4096, seed=1))
-    pos = torch.arange(8, dtype=torch.int32, device=cuda_device) * 400 + 100
+                          for a in _da_inputs(8, H, kv, hd, C, seed=1))
+    pos = torch.arange(8, dtype=torch.int32, device=cuda_device) \
+        * (400 * C // 4096) + 100
     full = tda.decode_attention(q, k, v, kpos, pos, None, 0.1)
     one = tda.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4], pos[3:4],
                                None, 0.1)

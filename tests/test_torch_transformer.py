@@ -2,7 +2,9 @@
 reference on every non-moe smoke config: parameter counts, ``forward``
 logits, ``prefill`` logits and caches, ``decode_step`` from the
 reference's own caches carried over, and greedy tokens, each with
-``use_kernel`` False and True.
+``use_kernel`` False and True.  The decode tests also run two cases at
+the zoo's widest attention heads (``WIDE``: gemma3-4b's hd 256,
+granite-34b's 48 query heads over one kv head), at the same tolerance.
 
 The reference's weights are carried over with ``params_from_jax``; its
 functions are compiled once per config (op by op they take seconds on
@@ -36,6 +38,13 @@ B, S, NEW = 2, 12, 8
 ARCHS = sorted(jreg.ARCHS)
 PORTED = [a for a in ARCHS if jreg.get_smoke(a).moe is None]
 MOE = [a for a in ARCHS if jreg.get_smoke(a).moe is not None]
+# the zoo's widest attention heads at smoke width, through the decode
+# tests: gemma3-4b's 8 query over 4 kv heads of 256 (with its smoke
+# (32, None) window pattern) and granite-34b's 48 query heads over one
+WIDE = {"gemma3-4b/heads": ("gemma3-4b", dict(num_heads=8, kv_heads=4,
+                                              head_dim=256)),
+        "granite-34b/heads": ("granite-34b", dict(num_heads=48, kv_heads=1,
+                                                  head_dim=128))}
 
 _j_init = jax.jit(JT.init_lm, static_argnums=(0,))
 _j_forward = jax.jit(JT.forward, static_argnames=("cfg", "use_kernel",
@@ -50,10 +59,20 @@ def _np(tree):
     return jax.tree_util.tree_map(np.array, tree)
 
 
+def _configs(arch):
+    """(reference config, port config) of a case: an arch's smoke config,
+    or a ``WIDE`` one."""
+    if arch in WIDE:
+        name, heads = WIDE[arch]
+        return (jbase.reduced(jreg.get_config(name), **heads),
+                tbase.reduced(treg.get_config(name), **heads))
+    return jreg.get_smoke(arch), treg.get_smoke(arch)
+
+
 @functools.cache
 def _setup(arch):
     """The reference's weights and a seeded batch for one smoke config."""
-    cfg = jreg.get_smoke(arch)
+    cfg = _configs(arch)[0]
     params = _j_init(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(len(arch))
     tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
@@ -97,7 +116,7 @@ def _reference(arch, use_kernel):
 
 def _port(arch):
     cfg, params, tokens, kw = _setup(arch)
-    return (treg.get_smoke(arch), TT.params_from_jax(_np(params), "cpu"),
+    return (_configs(arch)[1], TT.params_from_jax(_np(params), "cpu"),
             torch.from_numpy(tokens),
             {k: torch.from_numpy(v) for k, v in kw.items()})
 
@@ -246,7 +265,7 @@ def test_prefill_logits_and_caches_match_jax(arch, use_kernel):
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + list(WIDE))
 def test_decode_step_from_carried_jax_caches(arch, use_kernel):
     """Every step of the reference's greedy decode, replayed by the port
     from the reference's own caches: logits and new caches agree."""
@@ -268,7 +287,7 @@ def test_decode_step_from_carried_jax_caches(arch, use_kernel):
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + list(WIDE))
 def test_greedy_tokens_match_jax(arch, use_kernel):
     """The port's own prefill and greedy decode give the reference's tokens.
     A token is held to equality while every earlier step's top-1/top-2
