@@ -24,7 +24,8 @@ Phases, each printing JSON records on their own lines:
    and per call from Python, with inputs rotated through more than the
    50 MB L2, beside its bound, its plain version and, for decode
    attention (at slice C's, gemma3-4b's and granite-34b's shapes),
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; the SSD scan's five phases are timed
+   from one profiler pass;
 4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
    with one replicated stage, served by ``InferenceEngine(device="cuda")``
@@ -82,6 +83,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -152,6 +154,8 @@ BF16_ULP = 2.0 ** -7
 SSD_SWEEP = [(1, 2, 16, 2, 16, 8), (2, 4, 32, 3, 32, 16), (1, 8, 64, 2, 64, 64)]
 SSD_PATH = (4, 8, 256, 80, 64, 128)
 SSD_RAGGED = (4, 1, 100, 80, 64, 128)
+# the CUDA kernels one SSD-scan call launches, in order (csrc/ssd_scan.cu)
+SSD_PHASES = ("cum", "cb", "state", "pass", "scan")
 # Mamba2-2.7B (arXiv:2405.21060; src/repro_torch/configs/mamba2_2_7b.py) at
 # its published widths and depth: 4 prompts of 2048 tokens, 32 greedy
 # steps.  Kernel prefill vs plain prefill: the two scans differ only in
@@ -232,7 +236,8 @@ def build_kernels() -> None:
     emit(phase="build", sources=names, seconds=time.perf_counter() - t0,
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
          ptxas={n: [ln for ln in _build.build_info[n]["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill"))]
                 for n in names})
 
 
@@ -636,15 +641,40 @@ def _ssd_bounds(B, nc, Q, H, P, N) -> dict:
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+def _ssd_phases_ms(sets, calls: int = 8) -> dict:
+    """Device ms per launch of each CUDA kernel that one SSD-scan call
+    launches once (``SSD_PHASES``): the mean over the launches that one
+    ``torch.profiler`` pass over ``calls`` calls recorded (the tracer may
+    drop an event).  These launches are not the path's."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            ssd.ssd_scan(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    us, n = {}, {}
+    for t, name, count in _kernel_rows(prof):
+        for ph in SSD_PHASES:
+            if re.search(rf"\b{ph}_kernel\b", name):
+                us[ph] = us.get(ph, 0.0) + t
+                n[ph] = n.get(ph, 0) + count
+    check(set(us) == set(SSD_PHASES),
+          f"ssd_scan's kernels in the profile: {sorted(us)}")
+    return {ph: us[ph] / 1e3 / n[ph] for ph in SSD_PHASES}
+
+
 def time_ssd_scan(dev, shape) -> dict:
     """Kernel and plain version at the Mamba2 path's shape (f32, the path's
-    input distribution), two input sets of 0.37 GB each (past the L2)."""
+    input distribution), two input sets of 0.37 GB each (past the L2), and
+    each of the kernel's phases from the profiler."""
     sets = [_ssd_inputs(shape, 70 + i, dev, dist="path") for i in range(2)]
     rec = dict(shape=list(shape), kernel="ssd_scan",
                ms=_device_ms(ssd.ssd_scan, sets),
                plain_ms=_device_ms(ref.ssd_scan_ref, sets, reps=3),
                call_ms=_call_ms(ssd.ssd_scan, sets, iters=20),
                plain_call_ms=_call_ms(ref.ssd_scan_ref, sets, iters=6),
+               phases_ms=_ssd_phases_ms(sets),
                buffers=len(sets), **_ssd_bounds(*shape))
     rec["tflop_s"] = rec["ops"] / (rec["ms"] * 1e-3) / 1e12
     emit(phase="kernel_time", **rec)
@@ -1628,7 +1658,8 @@ def main() -> int:
         "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
         "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
         "library_ms": None, "call_ms": ssd_t["call_ms"],
-        "plain_call_ms": ssd_t["plain_call_ms"], "shape": list(SSD_PATH),
+        "plain_call_ms": ssd_t["plain_call_ms"],
+        "phases_ms": ssd_t["phases_ms"], "shape": list(SSD_PATH),
         "card": card})
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

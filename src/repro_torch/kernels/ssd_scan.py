@@ -5,8 +5,11 @@ CUDA C++ kernel (``csrc/ssd_scan.cu``, built for ``sm_90a`` at first use)
 replaces.  Per (batch row, head) the scan runs over the chunks in order,
 carrying an f32 state [P, N]: a quadratic attention-like term inside each
 chunk plus the incoming state's contribution, then the state update
-(arXiv:2405.21060).  One CTA per (b, h) loops over the chunks with the
-state in shared memory; the causal mask is applied before the exp.
+(arXiv:2405.21060).  The kernel takes the chunk-parallel form: C.B once
+per (batch row, chunk), each chunk's own state contribution and output in
+parallel over (batch row, chunk, head), and only an elementwise pass over
+the chunks in order; the causal mask is applied before the exp.  One call
+launches five CUDA kernels and counts as one launch.
 
 The wrapper checks shapes, dtypes and contiguity whatever the device.
 Given CPU tensors it then runs the plain PyTorch version
@@ -46,7 +49,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("ssd_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.ssd_scan_f32, lib.ssd_scan_bf16):
-            fn.argtypes = [p] * 8 + [i] * 6 + [p]
+            fn.argtypes = [p] * 11 + [i] * 6 + [p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -101,12 +104,19 @@ def ssd_scan(xc: torch.Tensor, dtc: torch.Tensor, A: torch.Tensor,
                          "the kernel takes")
     y = torch.empty_like(xc)
     final = torch.empty_like(init_state)
+    # the kernel's f32 scratch: cum and dt per (b, chunk, head), C.B per
+    # (b, chunk), and each chunk's state (its own contribution, then the
+    # state entering it) transposed to [N, P]
+    f32 = dict(dtype=torch.float32, device=dev)
+    cs = torch.empty((B, nc, H, 2, Q), **f32)
+    cb = torch.empty((B, nc, Q, Q), **f32)
+    st = torch.empty((B, nc, H, N, P), **f32)
     fn = _lib().ssd_scan_f32 if xc.dtype == torch.float32 \
         else _lib().ssd_scan_bf16
     err = fn(xc.data_ptr(), dtc.data_ptr(), A.data_ptr(), Bc.data_ptr(),
              Cc.data_ptr(), init_state.data_ptr(), y.data_ptr(),
-             final.data_ptr(), B, nc, Q, H, P, N,
-             torch.cuda.current_stream(dev).cuda_stream)
+             final.data_ptr(), cs.data_ptr(), cb.data_ptr(), st.data_ptr(),
+             B, nc, Q, H, P, N, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan: CUDA launch failed with error {err}")
     launches["ssd_scan"] += 1

@@ -1,7 +1,8 @@
 """Slice D's SSD scan and Mamba2 block in the port against the JAX reference:
 the plain scan (``ssd_scan_ref``), the kernel wrapper's CPU path
-(``ops.ssd_scan``) against the Pallas kernel in interpret mode,
-``ssd_chunked`` with ragged and short prompts, and ``mamba_block`` /
+(``ops.ssd_scan``) against the Pallas kernel in interpret mode, the CUDA
+kernel's chunk-parallel decomposition written in plain torch against both
+oracles, ``ssd_chunked`` with ragged and short prompts, and ``mamba_block`` /
 ``mamba_decode`` / ``_causal_conv`` on carried weights and caches.
 
 Inputs are made with numpy from a seed and handed to both packages.  On
@@ -143,6 +144,91 @@ def test_large_decay_is_finite_where_the_pallas_kernel_is_nan():
         assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
         _close(y.reshape(yj.shape), yj, F32_ATOL)
         _close(fin, fj, F32_ATOL, rtol=1e-3)
+
+
+# -- the CUDA kernel's decomposition, in plain torch --------------------------
+
+def _chunk_parallel_scan(xc, dtc, A, Bc, Cc, init_state):
+    """The chunk-parallel form ``csrc/ssd_scan.cu`` computes, written in
+    plain torch (f32) to hold its algebra against the oracles: (1) C.B^T
+    once per (b, chunk), not per head; (2) each chunk's own contribution to
+    the state, per (b, chunk, head); (3) the only sequential part, a pass
+    over the chunks that keeps the state entering each; (4) each chunk's
+    output from C.B and that state.  The causal mask comes before the
+    exp."""
+    f32 = torch.float32
+    x, dt, Bm, Cm = (t.to(f32) for t in (xc, dtc, Bc, Cc))
+    Q = x.shape[2]
+    cum = torch.cumsum(dt * A.to(f32), dim=2)                   # [B,nc,Q,H]
+    cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)                 # (1)
+    w = dt * torch.exp(cum[:, :, -1:] - cum)
+    local = torch.einsum("bcthp,bcth,bctn->bchpn", x, w, Bm)     # (2)
+    decay = torch.exp(cum[:, :, -1])                            # [B,nc,H]
+    state, entering = init_state.to(f32), []
+    for c in range(x.shape[1]):                                 # (3)
+        entering.append(state)
+        state = state * decay[:, c, :, None, None] + local[:, c]
+    s_prev = torch.stack(entering, dim=1)                       # [B,nc,H,P,N]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [B,nc,i,j,H]
+    scores = cb[..., None] * dt[:, :, None] * torch.exp(
+        torch.where(causal[None, None, :, :, None], diff, -torch.inf))
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, x) \
+        + torch.einsum("bcin,bchpn->bcihp", Cm, s_prev) \
+        * torch.exp(cum)[..., None]                              # (4)
+    return y.to(xc.dtype), state
+
+
+# the reference sweep, then a ragged chunk of Q = 100 whose last chunk ends
+# in dt = 0 pad rows (x, B, C zero too), as ``ssd_chunked`` pads a prompt
+DECOMP_CASES = [(s, "sweep") for s in SWEEP] + [((2, 3, 100, 4, 16, 8), "pad")]
+PAD_FROM = 63
+
+
+@pytest.mark.parametrize("shape,kind", DECOMP_CASES)
+def test_chunk_parallel_decomposition_matches_the_oracles(shape, kind):
+    arrs = _scan_inputs(*shape, seed=sum(shape) + 1)
+    if kind == "pad":
+        for a in (arrs[0], arrs[1], arrs[3], arrs[4]):
+            a[:, -1, PAD_FROM:] = 0.0
+    t = [torch.from_numpy(a) for a in arrs]
+    y, fin = _chunk_parallel_scan(*t)
+    yj, fj = jref.ssd_scan_ref(*(jnp.asarray(a) for a in arrs))
+    yt, ft = tref.ssd_scan_ref(*t)
+    for want_y, want_f in ((yj, fj), (yt.numpy(), ft.numpy())):
+        _close(y, want_y, F32_ATOL)
+        _close(fin, want_f, F32_ATOL, rtol=1e-3)
+    if kind == "pad":
+        # the pad rows leave the state as the unpadded tokens leave it:
+        # one step at a time, s = s exp(dt A) + dt x B^T
+        x, dt, A, Bm, _, st = arrs
+        B, nc, Q, H, P, N = shape
+        s = torch.from_numpy(st).double()
+        for c in range(nc):
+            for q in range(PAD_FROM if c == nc - 1 else Q):
+                d = torch.from_numpy(dt[:, c, q]).double()        # [B,H]
+                s = s * torch.exp(d * torch.from_numpy(A).double()
+                                  )[:, :, None, None] \
+                    + torch.einsum("bh,bhp,bn->bhpn", d,
+                                   torch.from_numpy(x[:, c, q]).double(),
+                                   torch.from_numpy(Bm[:, c, q]).double())
+        _close(fin, s.float().numpy(), F32_ATOL, rtol=1e-3)
+
+
+def test_chunk_parallel_decomposition_large_decay_is_finite():
+    """dt = 3 over chunks of 64 (a chunk's sum of dt*|A| is 192): the
+    decomposition masks before the exp, so y and the state stay finite and
+    agree with the JAX oracle."""
+    B, nc, Q, H, P, N = 1, 2, 64, 2, 16, 8
+    x, _, _, Bm, Cm, st = _scan_inputs(B, nc, Q, H, P, N, seed=9)
+    dt = np.full((B, nc, Q, H), 3.0, np.float32)
+    A = -np.ones((H,), np.float32)
+    args = (x, dt, A, Bm, Cm, st)
+    y, fin = _chunk_parallel_scan(*(torch.from_numpy(a) for a in args))
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    yj, fj = jref.ssd_scan_ref(*(jnp.asarray(a) for a in args))
+    _close(y, yj, F32_ATOL)
+    _close(fin, fj, F32_ATOL, rtol=1e-3)
 
 
 @pytest.mark.parametrize("S,chunk", [(100, 32), (20, 32), (64, 32), (7, 64)])
@@ -362,6 +448,21 @@ def test_wrapper_refuses_devices_it_does_not_run_on(where):
     assert tssd.plain_calls == {"ssd_scan": 0}
 
 
+def test_ssd_limits_equal_the_kernel_source():
+    """The wrapper's limits are the CUDA source's."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tssd.__file__), "csrc",
+                            "ssd_scan.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert tssd.MAX_Q == const("kMaxQ") == 256
+    assert tssd.MAX_P == const("kMaxP") == 64
+    assert tssd.MAX_N == const("kMaxN") == 128
+
+
 # -- the CUDA kernel against its plain version (needs a card) ------------------
 
 @pytest.fixture
@@ -399,3 +500,37 @@ def test_cuda_ssd_scan_large_decay_is_finite(cuda_device):
     yr, fr = tref.ssd_scan_ref(*t)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
     assert (y - yr).abs().max().item() <= F32_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_state_chaining(cuda_device):
+    """4 chunks in one kernel call == two calls of 2 chunks chained through
+    the state, within the f32 bar."""
+    arrs = _scan_inputs(1, 4, 64, 8, 64, 128, seed=6, dt=(0.01, 0.1))
+    x, dt, A, Bm, Cm, st = (torch.from_numpy(a).to(cuda_device) for a in arrs)
+    y_all, f_all = tssd.ssd_scan(x, dt, A, Bm, Cm, st)
+    half = [[t[:, sl].contiguous() for t in (x, dt, Bm, Cm)]
+            for sl in (slice(0, 2), slice(2, 4))]
+    y1, f1 = tssd.ssd_scan(half[0][0], half[0][1], A, half[0][2], half[0][3],
+                           st)
+    y2, f2 = tssd.ssd_scan(half[1][0], half[1][1], A, half[1][2], half[1][3],
+                           f1)
+    torch.cuda.synchronize()
+    assert (y_all - torch.cat([y1, y2], dim=1)).abs().max().item() <= F32_ATOL
+    assert (f_all - f2).abs().max().item() <= F32_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_counts_one_launch_per_call(cuda_device):
+    """One wrapper call at Mamba2-2.7B's prefill shape launches the kernel's
+    phases and counts once; the plain version does not run."""
+    _, t = _as(_scan_inputs(4, 8, 256, 80, 64, 128, seed=2), torch.float32)
+    t = [a.to(cuda_device) for a in t]
+    tssd.reset_counts()
+    y, fin = tssd.ssd_scan(*t)
+    torch.cuda.synchronize()
+    assert tssd.launches == {"ssd_scan": 1}
+    assert tssd.plain_calls == {"ssd_scan": 0}
+    assert tuple(y.shape) == (4, 8, 256, 80, 64)
+    assert tuple(fin.shape) == (4, 80, 64, 128)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
