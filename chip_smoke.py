@@ -8,14 +8,16 @@ Phases, each printing JSON records on their own lines:
    and CUDA versions, the compute capability;
 2. the build of every CUDA source under ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), with its time and the
-   assembler's register report;
+   assembler's register report; decode attention's register form must
+   build without spills in both dtypes;
 3. each kernel against its plain PyTorch version on the card: block
    quantization byte for byte at the wire shapes and on edge-case tiles
    (the subnormal tiles also against the reference's pinned values),
    decode attention within 1e-5 (f32) / 2e-2 (bf16) on the reference's
    sweep, the zoo's widest heads (G 2 at hd 256, G 48 at hd 128, G 5 at
-   hd 96 with a padded C), the decode path's shapes and an all-empty
-   cache, and batch-invariant bit for bit at G 12, 48 and hd 256; the SSD
+   hd 96 with a padded C), the register form's edge Cs (32, 288, 672),
+   the decode path's shapes and an all-empty cache, and batch-invariant
+   bit for bit at G 12, 48 and hd 256, window None and 128; the SSD
    scan on the reference's sweep (its bars 1e-4 / 5e-2), Mamba2-2.7B's
    prefill shape, a ragged 100-token chunk and a chunk whose decay
    overflows the TPU kernel (finite), and 4 chunks against 2 + 2; after
@@ -23,9 +25,9 @@ Phases, each printing JSON records on their own lines:
    shapes, on the device (calls captured in a CUDA graph and replayed)
    and per call from Python, with inputs rotated through more than the
    50 MB L2, beside its bound, its plain version and, for decode
-   attention (at slice C's, gemma3-4b's and granite-34b's shapes),
-   ``scaled_dot_product_attention``; the SSD scan's five phases are timed
-   from one profiler pass;
+   attention (at slice C's shape in f32 and bf16, gemma3-4b's and
+   granite-34b's), ``scaled_dot_product_attention``; the SSD scan's five
+   phases are timed from one profiler pass;
 4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
    with one replicated stage, served by ``InferenceEngine(device="cuda")``
@@ -121,11 +123,14 @@ DA_BF16_ATOL = 2e-2     # the reference sweep's bar for bf16 inputs
 # decode attention shapes (B, H, kv, hd, C): the reference's sweep
 # (tests/test_kernels.py); the zoo's widest heads at slice E's shapes
 # (gemma3-4b's local and global layers, granite-34b's), one split at B=1,
-# and G 5 at hd 96 with a C that ops.decode_attention pads; then the
-# decode path's at batch 1 and 8
+# and G 5 at hd 96 with a C that ops.decode_attention pads; the register
+# form's edge Cs at slice C's heads (one tile: nothing to prefetch; a last
+# split of one tile; a last split of five tiles); then the decode path's
+# at batch 1 and 8
 DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
             (1, 16, 4, 80, 640), (4, 8, 4, 256, 1024), (4, 8, 4, 256, 2048),
-            (4, 48, 1, 128, 2048), (1, 48, 1, 128, 256), (2, 40, 8, 96, 650)]
+            (4, 48, 1, 128, 2048), (1, 48, 1, 128, 256), (2, 40, 8, 96, 650),
+            (2, 24, 2, 128, 32), (2, 24, 2, 128, 288), (2, 24, 2, 128, 672)]
 DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
 # batch invariance at B=8: slice C's heads, granite-34b's and gemma3-4b's
 DA_INVARIANCE = [(8, 24, 2, 128, 4096), (8, 48, 1, 128, 2048),
@@ -228,6 +233,32 @@ def card_info() -> dict:
 
 # -- phase 2: build ------------------------------------------------------------
 
+def _da_ptxas(log: str) -> list[dict]:
+    """Registers and spill bytes of each decode-attention kernel from the
+    assembler's ``-v`` report, the mangled names made readable
+    (``reg_split_kernel<bf16, 3>``: the register form at 3 rows a warp)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"(reg_split_kernel|split_kernel|combine_kernel)"
+                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?", m.group(1))
+            name = m.group(1) if k is None else (
+                f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
+                + (f", {k.group(3)}>" if k.group(3) else ">"))
+            cur = {"kernel": name}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def build_kernels() -> None:
     names = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                    if f.endswith(".cu"))
@@ -239,6 +270,16 @@ def build_kernels() -> None:
                     if any(w in ln for w in ("entry function", "registers",
                                              "spill"))]
                 for n in names})
+    log = _build.build_info["decode_attention"]["log"]
+    if log != "(reused)":
+        da_k = _da_ptxas(log)
+        reg = [k for k in da_k if k["kernel"].startswith("reg_split")]
+        emit(phase="ptxas_decode_attention", kernels=da_k)
+        check(len(reg) == 16 and all(
+            k.get("spill_stores") == 0 and k.get("spill_loads") == 0
+            for k in reg),
+            f"decode attention's register form: want 16 kernels (8 row "
+            f"counts x 2 dtypes) without spills, ptxas says {reg}")
 
 
 # -- phase 3: kernels against their plain versions ------------------------------
@@ -318,13 +359,15 @@ def compare_kernels(dev) -> dict:
 def _da_inputs(B, H, kv, hd, C, seed, dev, dtype=torch.float32,
                valid=None):
     """Seeded decode-attention inputs on ``dev``.  Row b's cache holds
-    ``valid[b]`` filled slots (default: all but the last 50) at positions
-    0.., the rest empty (kpos -1); pos is the last filled position."""
+    ``valid[b]`` filled slots (default: all but the last 50, at least
+    half) at positions 0.., the rest empty (kpos -1); pos is the last
+    filled position."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(dev, dtype) for s in ((B, 1, H, hd), (B, C, kv, hd),
                                           (B, C, kv, hd)))
-    n = np.full(B, C - 50) if valid is None else np.asarray(valid)
+    n = np.full(B, max(C - 50, C // 2)) if valid is None \
+        else np.asarray(valid)
     kpos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
     kpos[kpos >= n[:, None]] = -1
     pos = np.maximum(n - 1, 0).astype(np.int32)
@@ -369,23 +412,26 @@ def compare_decode_attention(dev) -> dict:
 
 def check_da_batch_invariance(dev) -> None:
     """Row 3 of a B=8 call, computed alone, is bit-identical to the same
-    row computed stacked (rows at different fill levels), f32 and bf16."""
+    row computed stacked (rows at different fill levels), f32 and bf16,
+    window None and 128."""
     for i, (B, H, kv, hd, C) in enumerate(DA_INVARIANCE):
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v, kpos, pos = _da_inputs(
                 B, H, kv, hd, C, 80 + i, dev, dtype,
                 [C // 8 + (C // 9) * b for b in range(B)])
-            full = da.decode_attention(q, k, v, kpos, pos, None,
-                                       1.0 / math.sqrt(hd))
-            one = da.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4],
-                                      pos[3:4], None, 1.0 / math.sqrt(hd))
-            torch.cuda.synchronize()
-            same = bool(torch.equal(full[3:4], one))
-            emit(phase="decode_attention_batch_invariance",
-                 shape=[B, H, kv, hd, C], dtype=name, row=3,
-                 bit_identical=same)
-            check(same, f"decode attention row 3 alone != stacked at "
-                        f"{[B, H, kv, hd, C]} {name}")
+            for window in (None, 128):
+                full = da.decode_attention(q, k, v, kpos, pos, window,
+                                           1.0 / math.sqrt(hd))
+                one = da.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4],
+                                          pos[3:4], window,
+                                          1.0 / math.sqrt(hd))
+                torch.cuda.synchronize()
+                same = bool(torch.equal(full[3:4], one))
+                emit(phase="decode_attention_batch_invariance",
+                     shape=[B, H, kv, hd, C], dtype=name, window=window,
+                     form=da.form(H // kv, hd), row=3, bit_identical=same)
+                check(same, f"decode attention row 3 alone != stacked at "
+                            f"{[B, H, kv, hd, C]} {name} window={window}")
 
 
 def _call_ms(fn, args_list, iters: int = 200) -> float:
@@ -479,25 +525,29 @@ def time_kernels(dev, shapes) -> dict:
     return res
 
 
-def _da_bounds(B, H, kv, hd, C) -> dict:
-    """Least time for one f32 decode-attention call on a full cache: read
-    K, V, kpos, q (and pos) once, write out once; 4 flops per (row, slot,
-    element): q.k and p.v."""
-    nbytes = 4 * (2 * B * C * kv * hd + B * C + 2 * B * H * hd + B)
+def _da_bounds(B, H, kv, hd, C, itemsize: int = 4) -> dict:
+    """Least time for one decode-attention call on a full cache with q/k/v
+    of ``itemsize`` bytes: read K, V, kpos, q (and pos) once, write out
+    once; 4 f32 flops per (row, slot, element): q.k and p.v."""
+    nbytes = itemsize * (2 * B * C * kv * hd + 2 * B * H * hd) \
+        + 4 * (B * C + B)
     ops_ = 4 * B * H * C * hd
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
     return {"bytes": nbytes, "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
-def time_decode_attention(dev, B, H, kv, hd, C) -> dict:
+def time_decode_attention(dev, B, H, kv, hd, C,
+                          dtype=torch.float32) -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` (the
-    library yardstick, never called by the port) on a FULL f32 cache at
-    a decode path's shape, inputs rotated through more than the L2."""
+    library yardstick, never called by the port) on a FULL cache of
+    ``dtype`` at a decode path's shape, inputs rotated through more than
+    the L2."""
     scale = 1.0 / math.sqrt(hd)
-    per = 4 * (2 * B * C * kv * hd)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per = itemsize * (2 * B * C * kv * hd)
     nbuf = max(2, -(-(128 << 20) // per))
-    sets = [_da_inputs(B, H, kv, hd, C, 100 + i, dev, valid=[C] * B)
+    sets = [_da_inputs(B, H, kv, hd, C, 100 + i, dev, dtype, valid=[C] * B)
             for i in range(nbuf)]
     kargs = [(q, k, v, kp, p, None, scale) for q, k, v, kp, p in sets]
     # the library's layout: [B, heads, L, hd], mask [B, 1, 1, C]
@@ -511,8 +561,10 @@ def time_decode_attention(dev, B, H, kv, hd, C) -> dict:
 
     lib_out = library(*largs[0]).transpose(1, 2)
     want = ref.decode_attention_ref(*kargs[0])
-    lib_err = float((lib_out - want).abs().max().item())
+    lib_err = float((lib_out.float() - want).abs().max().item())
     rec = dict(shape=[B, H, kv, hd, C], kernel="decode_attention",
+               dtype="f32" if dtype == torch.float32 else "bf16",
+               form=da.form(H // kv, hd),
                ms=_device_ms(da.decode_attention, kargs),
                plain_ms=_device_ms(ref.decode_attention_ref, kargs),
                library_ms=_device_ms(library, largs),
@@ -520,7 +572,7 @@ def time_decode_attention(dev, B, H, kv, hd, C) -> dict:
                plain_call_ms=_call_ms(ref.decode_attention_ref, kargs),
                library_call_ms=_call_ms(library, largs),
                library_max_abs_err=lib_err, buffers=nbuf,
-               **_da_bounds(B, H, kv, hd, C))
+               **_da_bounds(B, H, kv, hd, C, itemsize))
     rec["bandwidth_gb_s"] = rec["bytes"] / (rec["ms"] * 1e-3) / 1e9
     emit(phase="kernel_time", **rec)
     del sets, kargs, largs
@@ -1609,7 +1661,8 @@ def main() -> int:
     da_shape = (lm_graph.DECODE_STEP_ROWS, cfg["num_heads"], cfg["kv_heads"],
                 cfg["head_dim"], cfg["cache_len"])
     da_t = time_decode_attention(dev, *da_shape)
-    da_zoo_t = [time_decode_attention(dev, *sh) for sh in DA_ZOO_TIMED]
+    da_other_t = [time_decode_attention(dev, *da_shape, dtype=torch.bfloat16)]
+    da_other_t += [time_decode_attention(dev, *sh) for sh in DA_ZOO_TIMED]
     ssd_t = time_ssd_scan(dev, SSD_PATH)
     # the kernels line reports the largest grid one request puts on the
     # wire on the main path
@@ -1643,11 +1696,11 @@ def main() -> int:
         "library_ms": da_t["library_ms"], "call_ms": da_t["call_ms"],
         "plain_call_ms": da_t["plain_call_ms"],
         "library_call_ms": da_t["library_call_ms"],
-        "shape": list(da_shape),
+        "shape": list(da_shape), "dtype": da_t["dtype"], "form": da_t["form"],
         "other_shapes": [{k: t[k] for k in (
-            "shape", "ms", "call_ms", "plain_ms", "plain_call_ms",
-            "bound_ms", "bound_by", "library_ms", "library_call_ms")}
-            for t in da_zoo_t],
+            "shape", "dtype", "form", "ms", "call_ms", "plain_ms",
+            "plain_call_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call_ms")} for t in da_other_t],
         "card": card})
     kernels.append({
         "name": "ssd_scan", "route": "cuda",

@@ -14,24 +14,66 @@
 // Bound: bytes.  Each step reads the whole cache (K and V) once and does
 // 4 flops per cached element (two multiply-adds per query row of the
 // group, amortised over G = H/kv rows), far below the card's
-// operations-per-byte line.  What matters is that the cache is read once
-// and that enough blocks are in flight: with B = 1 and kv = 2 the
-// (b, kv head) grid of the TPU kernel would occupy 2 of 132 SMs.  So the
-// cache length is split ("flash decoding"):
+// operations-per-byte line.  At the decode path's shape (B 8, H 24, kv 2,
+// hd 128, C 4096, f32) that is 67.4 MB: 0.02013 ms at 3.35 TB/s.  What
+// matters is that the cache is read once, that enough bytes are in
+// flight, and that the SM's work per byte stays below the memory's pace.
+// With B = 1 and kv = 2 the (b, kv head) grid of the TPU kernel would
+// occupy 2 of 132 SMs, so the cache length is split ("flash decoding"):
 //
 //   pass 1: one CTA per (C split of split_c slots, kv head and row group,
 //           b).  The query rows of the group sit in shared memory and
-//           share every K/V tile load (32 slots x hd); an online softmax
-//           keeps an f32 running max m, denominator l and accumulator per
-//           row, as the TPU kernel does over its sequential grid axis.
-//           Each CTA writes its partial (m, l, acc) to scratch.
+//           share every K/V tile (32 slots x hd); an online softmax keeps
+//           an f32 running max m, denominator l and accumulator per row,
+//           as the TPU kernel does over its sequential grid axis.  Each
+//           CTA writes its partial (m, l, acc) to scratch.
 //   pass 2: one CTA per (query row, kv head, b) combines the splits in a
 //           fixed order: M = max m_s, out = sum e^(m_s-M) acc_s /
 //           max(sum e^(m_s-M) l_s, 1e-30).
 //
-// Two forms of pass 1, chosen by shape:
-//   - registers (G <= 32, hd <= 128): 128 threads, thread d owns element
-//     d of every row's accumulator in registers (acc[32]).
+// Two forms of pass 1, chosen by (G, hd) alone (register_form):
+//
+//   - registers (G <= 32, hd <= 128, hd a multiple of 8): 128 threads, one
+//     CTA per (split, kv head, b), all G rows in it.
+//     * Tile ring.  K, V and the tile's 32 kpos entries go global ->
+//       shared as 16-byte cp.async.cg copies (warp w copies slots w, w+4,
+//       ..., lane c its c-th 16-byte chunk of the row: no division) into
+//       a ring of kStages = 2 tiles, kept in the input dtype (a bf16
+//       tile is half the bytes) and converted to f32 where they are read.
+//       While tile i is computed, tile i+1 is in flight; the last split
+//       of a C that is not a multiple of split_c has fewer tiles and
+//       nothing is fetched past its end (empty commit groups keep the
+//       wait counts uniform).  One __syncthreads per tile: it publishes
+//       tile i and retires tile i-1's stage for the next copy.  Copies
+//       of this source timed side by side on an H100 at the decode
+//       path's shape ran slower with a third stage, and with a split of
+//       128 or 512 slots; a copy that only loads the tiles took most of
+//       the call's time, so the pass is bound by its loads, not by its
+//       arithmetic.
+//     * Alignment.  Every 16-byte copy needs a 16-byte-aligned source:
+//       hd a multiple of 8 makes every row 16-byte aligned when k, v and
+//       kpos are; the wrapper checks their data_ptr and raises otherwise.
+//       K rows are padded by 16 bytes (4 f32 or 8 bf16), so they stay
+//       aligned and 16-byte reads of one column chunk across 32 slots
+//       (row stride 132 f32 or 136 bf16 at hd 128) hit all 32 banks once
+//       per quarter warp.  V is read along rows and is not padded.
+//     * Logits.  Warp w owns query rows w, w+4, ..., (kRows = ceil(G/4) of
+//       them; rows past G are zero and never written out), lane t owns
+//       slot t.  The thread walks d in 16-byte steps of its K row, reads
+//       that chunk once and uses it for all its rows, each with 4
+//       independent partial sums; q comes as broadcast float4 reads.  At
+//       G 12: 1 K and 3 q reads per 12 FMAs (f32).
+//     * Softmax.  The logits of a row already sit one per lane in the
+//       warp that owns the row, so the online softmax runs in registers
+//       (xor-butterfly max and sum: every lane ends with the same bits),
+//       with m, l and alpha per row in registers.  p goes to a shared row
+//       private to the warp: a __syncwarp, no CTA barrier.
+//     * P.V.  Lane c owns elements 4c..4c+3 of each of its warp's rows
+//       (acc[kRows][4] in registers).  Per slot it reads its 4 V elements
+//       once (a 16-byte f32 or 8-byte bf16 read, conflict-free along the
+//       row) for all its rows, and p as broadcast float4 per 4 slots: at
+//       G 12, 7 reads per 48 FMAs.  Each accumulator is scaled by alpha
+//       and then takes one fma per slot in slot order, as before.
 //   - shared memory (any other G, hd <= 256): 256 threads; the
 //     accumulators are [rows][hd] f32 in shared memory beside the query
 //     rows, and thread i updates elements i, i + 256, ...  A CTA takes at
@@ -41,18 +83,16 @@
 //     granite-34b's 48 rows 6x the CTAs: with all 48 rows in one CTA, its
 //     32 CTAs took 0.183 ms at (B 4, C 2048), latency-bound on 8 warps per
 //     SM (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's kernel_time).
-// Both forms do the same arithmetic per accumulator element (scale by
-// alpha, then one fma per slot of the tile in slot order); which form
-// runs depends on G and hd only.
 //
-// Batch invariance: the split count, the row groups and every reduction
-// order depend on C, hd and G only, never on B, so a row's output is
-// bit-identical whether it is computed alone or stacked with other
-// sessions' rows (the serving chain batches steps across sessions; its
-// tokens must equal the single-session reference bit for bit).
-// Arithmetic is IEEE: expf, true division, no fast math.  Masked logits
-// are -1e30 and the running max starts at -1e30 (as in the TPU kernel), so
-// an all-empty cache weighs its slots uniformly and stays finite.
+// Batch invariance: the split count, the row groups, the ring and every
+// reduction order depend on C, hd, G and the dtype only, never on B, so a
+// row's output is bit-identical whether it is computed alone or stacked
+// with other sessions' rows (the serving chain batches steps across
+// sessions; its tokens must equal the single-session reference bit for
+// bit).  Arithmetic is IEEE f32: fmaf, expf, true division, no fast math,
+// no TF32.  Masked logits are -1e30 and the running max starts at -1e30
+// (as in the TPU kernel), so an all-empty cache weighs its slots
+// uniformly and stays finite.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,9 +103,12 @@ constexpr int kThreads = 128;      // register form; the combine pass
 constexpr int kWideThreads = 256;  // shared-memory form
 constexpr int kTile = 32;          // cache slots per shared-memory tile
 constexpr int kRegG = 32;          // register form: query rows per kv head
-constexpr int kRegHd = 128;        // register form: one thread per element
+constexpr int kRegHd = 128;        // register form: head_dim at most
+constexpr int kRegHdMultiple = 8;  // register form: 16-byte rows in bf16
+constexpr int kRegWarps = kThreads / 32;   // register form: row groups
 constexpr int kMaxHd = 256;        // head_dim, either form
 constexpr int kGroupRows = 8;      // shared-memory form: query rows per CTA
+constexpr int kStages = 2;         // register form: tiles in the ring
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -78,31 +121,287 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-bool register_form(int G, int hd) { return G <= kRegG && hd <= kRegHd; }
-
-int group_rows(int G, int hd) {
-  return register_form(G, hd) ? G : (G < kGroupRows ? G : kGroupRows);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes of shared memory as f32: 4 floats, or 8 bf16 widened.
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+}
+// two bf16 (element 0 in the low half) as f32: exact, a bf16 is the high
+// half of its f32
+__device__ __forceinline__ float2 widen(unsigned w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&x)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = widen(w[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+// 4 consecutive elements of shared memory as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = widen(a.x), hi = widen(a.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+bool register_form(int G, int hd) {
+  return G <= kRegG && hd <= kRegHd && hd % kRegHdMultiple == 0;
+}
+
+// -- register form -------------------------------------------------------------
+
+// Shared memory of the register form: q [RP][hd] and p [RP][kTile] f32
+// (RP = kRegWarps * rows, rows per warp), then the ring, each stage
+// k [kTile][hd + 16 B] and v [kTile][hd] in T and kpos [kTile] int32: at
+// most 88 KB (f32, 32 rows, hd 128), so two CTAs fit on an SM.
+template <typename T>
+size_t reg_smem_bytes(int rows, int hd) {
+  return sizeof(float) * (size_t)kRegWarps * rows * (hd + kTile) +
+         kStages * (sizeof(T) * (size_t)kTile * (2 * hd + 16 / sizeof(T)) +
+                    sizeof(int) * kTile);
+}
+
+template <typename T, int kRows>
+__global__ void __launch_bounds__(kThreads, 2)
+reg_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ kpos,
+                 const int* __restrict__ pos, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int C, int kv, int G, int hd,
+                 int split_c, int splits, int window, float scale) {
+  constexpr int kVec = 16 / sizeof(T);       // elements per 16-byte copy
+  constexpr int kRP = kRegWarps * kRows;     // query rows, padded
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ks = hd + kVec;                  // K row stride: +16 bytes
+  const int chunks = hd / kVec;              // 16-byte chunks per row
+  const int stage_elems =                    // k, v, then kpos in T units
+      kTile * (ks + hd) + kTile * (int)(sizeof(int) / sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + kRP * hd;
+  T* ring = reinterpret_cast<T*>(p_s + kRP * kTile);
+
+  const size_t row = (size_t)kv * hd;        // elements between cache slots
+  const T* kb = k + (size_t)b * C * row + (size_t)h * hd;
+  const T* vb = v + (size_t)b * C * row + (size_t)h * hd;
+  const int* kp = kpos + (size_t)b * C;
+  const int c0 = s * split_c;
+  const int tiles = (min(C, c0 + split_c) - c0) / kTile;
+
+  // Tile i of the split into stage st; past the split's end, only the
+  // (empty) commit group.
+  auto fetch = [&](int i, int st) {
+    if (i < tiles) {
+      T* k_st = ring + st * stage_elems;
+      T* v_st = k_st + kTile * ks;
+      int* kp_st = reinterpret_cast<int*>(v_st + kTile * hd);
+      const int t0 = c0 + i * kTile;
+      if (lane < chunks) {
+        for (int t = warp; t < kTile; t += kRegWarps) {
+          const size_t g = (size_t)(t0 + t) * row + lane * kVec;
+          cp_async16(k_st + t * ks + lane * kVec, kb + g);
+          cp_async16(v_st + t * hd + lane * kVec, vb + g);
+        }
+      }
+      if (threadIdx.x < kTile / 4)
+        cp_async16(kp_st + threadIdx.x * 4, kp + t0 + threadIdx.x * 4);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) fetch(i, i);
+
+  // this warp's query rows g = warp + kRegWarps * j, zero past G
+  const T* qb = q + ((size_t)b * kv + h) * G * hd;
+  for (int g = warp; g < kRP; g += kRegWarps)
+    for (int d = lane; d < hd; d += 32)
+      q_s[g * hd + d] = g < G ? to_f32(qb[g * hd + d]) : 0.0f;
+
+  float m[kRows], l[kRows], acc[kRows][4];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+  }
+  const int now = pos[b];
+  const int d0 = lane * 4;                   // P.V: elements d0..d0+3
+  int st = 0;                                // stage of tile i
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();        // tile i is in; every thread is past tile i-1
+    fetch(i + kStages - 1, st == 0 ? kStages - 1 : st - 1);
+    const T* k_st = ring + st * stage_elems;
+    const T* v_st = k_st + kTile * ks;
+    const int* kp_st = reinterpret_cast<const int*>(v_st + kTile * hd);
+
+    // logits: lane = slot; each 16-byte chunk of K serves every row
+    float part[kRows][4];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[j][c] = 0.0f;
+    const T* kr = k_st + lane * ks;
+#pragma unroll 4
+    for (int d = 0; d < hd; d += kVec) {
+      float kx[kVec];
+      load16(kr + d, kx);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const float* qr = q_s + (warp + kRegWarps * j) * hd + d;
+#pragma unroll
+        for (int e = 0; e < kVec; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          part[j][0] = fmaf(qv.x, kx[e], part[j][0]);
+          part[j][1] = fmaf(qv.y, kx[e + 1], part[j][1]);
+          part[j][2] = fmaf(qv.z, kx[e + 2], part[j][2]);
+          part[j][3] = fmaf(qv.w, kx[e + 3], part[j][3]);
+        }
+      }
+    }
+    const int kt = kp_st[lane];
+    const int delta = now - kt;
+    const bool valid = kt >= 0 && delta >= 0 && (window <= 0 || delta < window);
+
+    // online softmax in registers: the warp's lanes are the tile's slots
+    float alpha[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float dot = (part[j][0] + part[j][1]) + (part[j][2] + part[j][3]);
+      const float x = valid ? dot * scale : kNegInf;
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_cur = fmaxf(m[j], mx);
+      const float p = expf(x - m_cur);
+      float sum = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      p_s[(warp + kRegWarps * j) * kTile + lane] = p;
+      alpha[j] = expf(m[j] - m_cur);
+      l[j] = l[j] * alpha[j] + sum;
+      m[j] = m_cur;
+    }
+    __syncwarp();
+
+    // acc[j][:] = acc[j][:] * alpha[j] + sum_t p[j][t] v[t][d0..d0+3]
+    if (d0 < hd) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] *= alpha[j];
+#pragma unroll
+      for (int t = 0; t < kTile; t += 4) {
+        float4 pv[kRows];
+#pragma unroll
+        for (int j = 0; j < kRows; ++j)
+          pv[j] = *reinterpret_cast<const float4*>(
+              p_s + (warp + kRegWarps * j) * kTile + t);
+        const float4 v0 = load4(v_st + (t + 0) * hd + d0);
+        const float4 v1 = load4(v_st + (t + 1) * hd + d0);
+        const float4 v2 = load4(v_st + (t + 2) * hd + d0);
+        const float4 v3 = load4(v_st + (t + 3) * hd + d0);
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          fma4(acc[j], pv[j].x, v0);
+          fma4(acc[j], pv[j].y, v1);
+          fma4(acc[j], pv[j].z, v2);
+          fma4(acc[j], pv[j].w, v3);
+        }
+      }
+    }
+    st = st + 1 == kStages ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+
+  const size_t base = (((size_t)b * kv + h) * splits + s) * G;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int g = warp + kRegWarps * j;
+    if (g < G) {
+      if (d0 < hd)
+        *reinterpret_cast<float4*>(part_acc + (base + g) * hd + d0) =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      if (lane == 0) {
+        part_ml[(base + g) * 2] = m[j];
+        part_ml[(base + g) * 2 + 1] = l[j];
+      }
+    }
+  }
+}
+
+template <typename T, int kRows>
+cudaError_t launch_reg(const T* q, const T* k, const T* v, const int* kpos,
+                       const int* pos, float* part_acc, float* part_ml, int B,
+                       int C, int kv, int G, int hd, int split_c, int splits,
+                       int window, float scale, cudaStream_t stream) {
+  const size_t smem = reg_smem_bytes<T>(kRows, hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reg_split_kernel<T, kRows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  reg_split_kernel<T, kRows><<<dim3(splits, kv, B), kThreads, smem, stream>>>(
+      q, k, v, kpos, pos, part_acc, part_ml, C, kv, G, hd, split_c, splits,
+      window, scale);
+  return cudaGetLastError();
+}
+
+// -- shared-memory form ----------------------------------------------------------
+
+int group_rows(int G) { return G < kGroupRows ? G : kGroupRows; }
 
 size_t smem_bytes(int G, int hd) {
   // q [R][hd], k [kTile][hd+1] (padded: conflict-free column reads),
-  // v [kTile][hd], p [R][kTile], m/l/alpha [R]; the shared-memory form
-  // adds acc [R][hd].  R = rows per CTA.
-  const size_t R = group_rows(G, hd);
-  const size_t acc = register_form(G, hd) ? 0 : R * hd;
+  // v [kTile][hd], p [R][kTile], m/l/alpha [R], acc [R][hd].  R = rows
+  // per CTA.
+  const size_t R = group_rows(G);
   return sizeof(float) * (R * hd + (size_t)kTile * (hd + 1) +
-                          (size_t)kTile * hd + R * kTile + 3 * R + acc);
+                          (size_t)kTile * hd + R * kTile + 3 * R + R * hd);
 }
 
-template <typename T, bool kReg>
-__global__ void __launch_bounds__(kReg ? kThreads : kWideThreads)
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kpos,
              const int* __restrict__ pos, float* __restrict__ part_acc,
              float* __restrict__ part_ml, int C, int kv, int G, int hd,
              int rows, int groups, int split_c, int splits, int window,
              float scale) {
-  constexpr int kThr = kReg ? kThreads : kWideThreads;
+  constexpr int kThr = kWideThreads;
   const int s = blockIdx.x, b = blockIdx.z;
   const int h = blockIdx.y / groups;
   const int g0 = (blockIdx.y - h * groups) * rows;
@@ -116,7 +415,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* m_s = p_s + rows * kTile;
   float* l_s = m_s + rows;
   float* a_s = l_s + rows;
-  float* acc_s = a_s + rows;                 // shared-memory form only
+  float* acc_s = a_s + rows;
 
   const T* qb = q + ((size_t)b * kv * G + (size_t)h * G + g0) * hd;
   for (int i = tid; i < R * hd; i += kThr) q_s[i] = to_f32(qb[i]);
@@ -124,13 +423,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_s[g] = kNegInf;
     l_s[g] = 0.0f;
   }
-  float acc[kReg ? kRegG : 1];
-  if constexpr (kReg) {
-#pragma unroll
-    for (int g = 0; g < kRegG; ++g) acc[g] = 0.0f;
-  } else {
-    for (int i = tid; i < R * hd; i += kThr) acc_s[i] = 0.0f;
-  }
+  for (int i = tid; i < R * hd; i += kThr) acc_s[i] = 0.0f;
 
   const int now = pos[b];
   const size_t row = (size_t)kv * hd;        // elements between cache slots
@@ -185,42 +478,19 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // acc[g][d] = acc[g][d] * alpha[g] + sum_t p[g][t] v[t][d]
-    if constexpr (kReg) {
-      if (tid < hd) {                        // thread = d
-#pragma unroll
-        for (int g = 0; g < kRegG; ++g) {
-          if (g < R) {
-            const float* pr = p_s + g * kTile;
-            float a = acc[g] * a_s[g];
+    for (int i = tid; i < R * hd; i += kThr) {
+      const int g = i / hd, d = i - g * hd;
+      const float* pr = p_s + g * kTile;
+      float a = acc_s[i] * a_s[g];
 #pragma unroll 8
-            for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], v_s[t * hd + tid], a);
-            acc[g] = a;
-          }
-        }
-      }
-    } else {
-      for (int i = tid; i < R * hd; i += kThr) {
-        const int g = i / hd, d = i - g * hd;
-        const float* pr = p_s + g * kTile;
-        float a = acc_s[i] * a_s[g];
-#pragma unroll 8
-        for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], v_s[t * hd + d], a);
-        acc_s[i] = a;
-      }
+      for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], v_s[t * hd + d], a);
+      acc_s[i] = a;
     }
     __syncthreads();
   }
 
   const size_t base = (((size_t)b * kv + h) * splits + s) * G + g0;
-  if constexpr (kReg) {
-    if (tid < hd) {
-#pragma unroll
-      for (int g = 0; g < kRegG; ++g)
-        if (g < R) part_acc[(base + g) * hd + tid] = acc[g];
-    }
-  } else {
-    for (int i = tid; i < R * hd; i += kThr) part_acc[base * hd + i] = acc_s[i];
-  }
+  for (int i = tid; i < R * hd; i += kThr) part_acc[base * hd + i] = acc_s[i];
   for (int g = tid; g < R; g += kThr) {
     part_ml[(base + g) * 2] = m_s[g];
     part_ml[(base + g) * 2 + 1] = l_s[g];
@@ -249,27 +519,46 @@ combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T, bool kReg>
+template <typename T>
 cudaError_t launch_split(const T* q, const T* k, const T* v, const int* kpos,
                          const int* pos, float* part_acc, float* part_ml,
                          int B, int C, int kv, int G, int hd, int split_c,
                          int splits, int window, float scale,
                          cudaStream_t stream) {
-  const int rows = group_rows(G, hd);
+  const int rows = group_rows(G);
   const int groups = (G + rows - 1) / rows;
   const size_t smem = smem_bytes(G, hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        split_kernel<T, kReg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  split_kernel<T, kReg><<<dim3(splits, kv * groups, B),
-                          kReg ? kThreads : kWideThreads, smem, stream>>>(
+  split_kernel<T><<<dim3(splits, kv * groups, B), kWideThreads, smem,
+                    stream>>>(
       q, k, v, kpos, pos, part_acc, part_ml, C, kv, G, hd, rows, groups,
       split_c, splits, window, scale);
   return cudaGetLastError();
 }
+
+template <typename T>
+cudaError_t launch_reg_form(const T* q, const T* k, const T* v,
+                            const int* kpos, const int* pos, float* part_acc,
+                            float* part_ml, int B, int C, int kv, int G,
+                            int hd, int split_c, int splits, int window,
+                            float scale, cudaStream_t stream) {
+  switch ((G + kRegWarps - 1) / kRegWarps) {
+#define DA_REG_ROWS(R)                                                        \
+  case R:                                                                     \
+    return launch_reg<T, R>(q, k, v, kpos, pos, part_acc, part_ml, B, C, kv, \
+                            G, hd, split_c, splits, window, scale, stream);
+    DA_REG_ROWS(1) DA_REG_ROWS(2) DA_REG_ROWS(3) DA_REG_ROWS(4)
+    DA_REG_ROWS(5) DA_REG_ROWS(6) DA_REG_ROWS(7) DA_REG_ROWS(8)
+#undef DA_REG_ROWS
+  }
+  return cudaErrorInvalidValue;
+}
+static_assert(kRegG == 8 * kRegWarps, "one case per row count");
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
@@ -282,12 +571,11 @@ int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
   const int splits = (C + split_c - 1) / split_c;
   cudaError_t e =
       register_form(G, hd)
-          ? launch_split<T, true>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
-                                  kv, G, hd, split_c, splits, window, scale,
-                                  stream)
-          : launch_split<T, false>(q, k, v, kpos, pos, part_acc, part_ml, B,
-                                   C, kv, G, hd, split_c, splits, window,
-                                   scale, stream);
+          ? launch_reg_form<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
+                               kv, G, hd, split_c, splits, window, scale,
+                               stream)
+          : launch_split<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C, kv,
+                            G, hd, split_c, splits, window, scale, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   combine_kernel<T><<<dim3(G, kv, B), kThreads, 0, stream>>>(
       part_acc, part_ml, out, kv, G, hd, splits);
@@ -300,10 +588,11 @@ int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
 // of contiguous buffers: q/out [B,1,kv*G,hd], k/v [B,C,kv,hd], kpos [B,C],
 // pos [B], part_acc [B,kv,splits,G,hd] and part_ml [B,kv,splits,G,2] f32
 // scratch with splits = ceil(C / split_c).  C and split_c are multiples of
-// 32, G >= 1, hd <= 256; window <= 0 means no window.  Launches both
-// passes on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for shapes the kernel does not take; never
-// synchronises.
+// 32, G >= 1, hd <= 256; window <= 0 means no window.  In the register
+// form (G <= 32, hd <= 128, hd a multiple of 8) k, v and kpos must be
+// 16-byte aligned.  Launches both passes on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
+// the kernel does not take; never synchronises.
 extern "C" int da_decode_f32(const float* q, const float* k, const float* v,
                              const int* kpos, const int* pos, float* part_acc,
                              float* part_ml, float* out, int B, int C, int kv,

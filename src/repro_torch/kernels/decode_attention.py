@@ -12,7 +12,11 @@ in a fixed order, so a row's result never depends on the batch it is
 stacked in.  It takes any group size G = H/kv, any head_dim up to
 ``MAX_HD`` (the wrapper raises above it, on any device) and a C that is a
 multiple of ``BLOCK_C`` (:func:`repro_torch.kernels.ops.decode_attention`
-pads the cache with ``kpos = -1``).
+pads the cache with ``kpos = -1``).  Its first pass has two forms, chosen
+by (G, hd) alone (:func:`form`): the register form streams K/V tiles
+through a ring of 16-byte ``cp.async`` copies, so on a card it needs k, v
+and kpos 16-byte aligned (the wrapper raises otherwise); the shared-memory
+form takes the rest of the domain.
 
 A wrapper given CPU tensors runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`); given CUDA tensors
@@ -30,6 +34,10 @@ from repro_torch.kernels import ref
 BLOCK_C = 32          # cache slots per shared-memory tile (csrc kTile)
 SPLIT_C = 256         # cache slots per CTA: the split depends on C only
 MAX_HD = 256          # head_dim (csrc kMaxHd); any number of query rows
+REG_MAX_G = 32        # register form: query rows per kv head (csrc kRegG)
+REG_MAX_HD = 128      # register form: head_dim at most (csrc kRegHd)
+REG_HD_MULTIPLE = 8   # register form: head_dim a multiple (kRegHdMultiple)
+ALIGN = 16            # register form: bytes of alignment of k, v and kpos
 
 launches = {"decode_attention": 0}
 plain_calls = {"decode_attention": 0}
@@ -60,6 +68,13 @@ def _lib() -> ctypes.CDLL:
 def splits(C: int) -> int:
     """Number of C chunks (CTAs per kv head and row) the kernel uses."""
     return -(-C // SPLIT_C)
+
+
+def form(G: int, hd: int) -> str:
+    """The kernel's first-pass form for G query rows per kv head at head_dim
+    ``hd``: "register" or "shared" (csrc ``register_form``)."""
+    return ("register" if G <= REG_MAX_G and hd <= REG_MAX_HD
+            and hd % REG_HD_MULTIPLE == 0 else "shared")
 
 
 def _check_shapes(q, k, v, kpos, pos, window) -> tuple[int, ...]:
@@ -113,6 +128,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if C % BLOCK_C:
         raise ValueError(f"decode_attention: C={C} is not a multiple of "
                          f"{BLOCK_C} (ops.decode_attention pads it)")
+    if form(G, hd) == "register":
+        bad = [name for name, t in (("k", k), ("v", v), ("kpos", kpos))
+               if t.data_ptr() % ALIGN]
+        if bad:
+            raise ValueError(f"decode_attention: {'/'.join(bad)} not "
+                             f"{ALIGN}-byte aligned; the register form "
+                             f"(G={G}, hd={hd}) copies 16-byte chunks")
     n = splits(C)
     part_acc = torch.empty((B, kv, n, G, hd), dtype=torch.float32, device=dev)
     part_ml = torch.empty((B, kv, n, G, 2), dtype=torch.float32, device=dev)

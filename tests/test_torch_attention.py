@@ -348,6 +348,9 @@ def test_decode_attention_limits_equal_the_kernel_source():
 
     assert tda.BLOCK_C == const("kTile") == 32
     assert tda.MAX_HD == const("kMaxHd") == 256
+    assert tda.REG_MAX_G == const("kRegG") == 32
+    assert tda.REG_MAX_HD == const("kRegHd") == 128
+    assert tda.REG_HD_MULTIPLE == const("kRegHdMultiple") == 8
     assert not hasattr(tda, "MAX_G") and "kMaxG" not in src
     ok = [torch.from_numpy(a) for a in _da_inputs(1, 48, 1, 256, 64)]
     assert tops.decode_attention(*ok, None, 0.1).shape == (1, 1, 48, 256)
@@ -355,6 +358,49 @@ def test_decode_attention_limits_equal_the_kernel_source():
                           _da_inputs(1, 2, 1, 264, 64))
     with pytest.raises(ValueError, match="limit of 256"):
         tda.decode_attention(q, k, v, kpos, pos, None, 0.1)
+
+
+def test_decode_attention_form_matches_the_kernel_source():
+    """``form()`` mirrors the source's ``register_form``: the register form
+    for G <= kRegG and hd <= kRegHd with hd a multiple of kRegHdMultiple,
+    the shared-memory form for every other (G, hd)."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tda.__file__), "csrc",
+                            "decode_attention.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (tda.REG_MAX_G, tda.REG_MAX_HD, tda.REG_HD_MULTIPLE) == (
+        const("kRegG"), const("kRegHd"), const("kRegHdMultiple"))
+    assert re.search(r"return G <= kRegG && hd <= kRegHd && "
+                     r"hd % kRegHdMultiple == 0;", src)
+    # slice C's heads, then the reference sweep's
+    for G, hd in [(12, 128), (1, 64), (4, 64), (8, 128), (4, 80), (5, 96),
+                  (32, 128)]:
+        assert tda.form(G, hd) == "register", (G, hd)
+    # gemma3-4b, granite-34b, past kRegG, an hd off the 8-multiple, past
+    # kRegHd
+    for G, hd in [(2, 256), (48, 128), (33, 64), (4, 100), (4, 136)]:
+        assert tda.form(G, hd) == "shared", (G, hd)
+
+
+def test_decode_attention_offset_k_view_on_cpu_runs_plain_version():
+    """The register form's 16-byte alignment rule is the card's: on the
+    CPU an offset (misaligned) k view still gives the plain result."""
+    q, k, v, kpos, pos = (torch.from_numpy(a) for a in
+                          _da_inputs(2, 24, 2, 128, 64, seed=4, empty=10))
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype)
+    k_off = buf[1:].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.data_ptr() % tda.ALIGN and k_off.is_contiguous()
+    tda.reset_counts()
+    got = tda.decode_attention(q, k_off, v, kpos, pos, 32, 0.1)
+    want = tref.decode_attention_ref(q, k, v, kpos, pos, 32, 0.1)
+    assert torch.equal(got, want)
+    assert tda.plain_calls == {"decode_attention": 1}
+    assert tda.launches == {"decode_attention": 0}
 
 
 # -- the CUDA kernel against its plain version (needs a card) ------------------
@@ -399,3 +445,49 @@ def test_cuda_decode_attention_is_batch_invariant(cuda_device, H, kv, hd, C):
     one = tda.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4], pos[3:4],
                                None, 0.1)
     assert torch.equal(full[3:4], one)
+
+
+# register form at slice C's heads: one tile (nothing to prefetch), a last
+# split of one tile, a last split of five tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 288, 672])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_register_form_edge_cs(cuda_device, C, window,
+                                                     dtype):
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in _da_inputs(2, 24, 2, 128, C, seed=C, empty=C // 4)]
+    q, k, v = (a.to(dtype) for a in arrs[:3])
+    assert tda.form(12, 128) == "register"
+    tda.reset_counts()
+    out = tda.decode_attention(q, k, v, arrs[3], arrs[4], window, 0.1)
+    torch.cuda.synchronize()
+    assert tda.launches == {"decode_attention": 1}
+    want = tref.decode_attention_ref(q, k, v, arrs[3], arrs[4], window, 0.1)
+    tol = BF16_ATOL if dtype == torch.bfloat16 else ATTN_ATOL
+    assert (out.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_register_form_batch_invariant_windowed(
+        cuda_device):
+    q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
+                          for a in _da_inputs(8, 24, 2, 128, 4096, seed=2))
+    pos = torch.arange(8, dtype=torch.int32, device=cuda_device) * 400 + 100
+    full = tda.decode_attention(q, k, v, kpos, pos, 128, 0.1)
+    one = tda.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4], pos[3:4],
+                               128, 0.1)
+    assert torch.equal(full[3:4], one)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_misaligned_k_raises(cuda_device):
+    q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
+                          for a in _da_inputs(2, 24, 2, 128, 64, seed=3))
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda_device)
+    k_off = buf[1:].view(k.shape)
+    k_off.copy_(k)
+    tda.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tda.decode_attention(q, k_off, v, kpos, pos, None, 0.1)
+    assert tda.launches == {"decode_attention": 0}
