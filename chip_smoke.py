@@ -8,15 +8,17 @@ Phases, each printing JSON records on their own lines:
    and CUDA versions, the compute capability;
 2. the build of every CUDA source under ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together), with its time and the
-   assembler's register report; decode attention's register form must
-   build without spills in both dtypes;
+   assembler's register report; decode attention's register and tiled
+   forms must build without spills in both dtypes;
 3. each kernel against its plain PyTorch version on the card: block
    quantization byte for byte at the wire shapes and on edge-case tiles
    (the subnormal tiles also against the reference's pinned values),
    decode attention within 1e-5 (f32) / 2e-2 (bf16) on the reference's
    sweep, the zoo's widest heads (G 2 at hd 256, G 48 at hd 128, G 5 at
-   hd 96 with a padded C), the register form's edge Cs (32, 288, 672),
-   the decode path's shapes and an all-empty cache, and batch-invariant
+   hd 96 with a padded C), hd 100 (the shared-memory form), the register
+   form's edge Cs (32, 288, 672) and the tiled form's at hd 256 and G 48
+   (one tile, a last split of one tile), the decode path's shapes and an
+   all-empty cache, and batch-invariant
    bit for bit at G 12, 48 and hd 256, window None and 128; the SSD
    scan on the reference's sweep (its bars 1e-4 / 5e-2), Mamba2-2.7B's
    prefill shape, a ragged 100-token chunk and a chunk whose decay
@@ -25,8 +27,9 @@ Phases, each printing JSON records on their own lines:
    shapes, on the device (calls captured in a CUDA graph and replayed)
    and per call from Python, with inputs rotated through more than the
    50 MB L2, beside its bound, its plain version and, for decode
-   attention (at slice C's shape in f32 and bf16, gemma3-4b's and
-   granite-34b's), ``scaled_dot_product_attention``; the SSD scan's five
+   attention (at slice C's shape in f32 and bf16, gemma3-4b's local and
+   global layers' and granite-34b's), ``scaled_dot_product_attention``;
+   the SSD scan's five
    phases are timed from one profiler pass;
 4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
@@ -123,20 +126,27 @@ DA_BF16_ATOL = 2e-2     # the reference sweep's bar for bf16 inputs
 # decode attention shapes (B, H, kv, hd, C): the reference's sweep
 # (tests/test_kernels.py); the zoo's widest heads at slice E's shapes
 # (gemma3-4b's local and global layers, granite-34b's), one split at B=1,
-# and G 5 at hd 96 with a C that ops.decode_attention pads; the register
-# form's edge Cs at slice C's heads (one tile: nothing to prefetch; a last
-# split of one tile; a last split of five tiles); then the decode path's
-# at batch 1 and 8
+# and G 5 at hd 96 with a C that ops.decode_attention pads; hd 100, the
+# shared-memory form's domain; the register form's edge Cs at slice C's
+# heads (one tile: nothing to prefetch; a last split of one tile; a last
+# split of five tiles) and the tiled form's at gemma3-4b's and
+# granite-34b's heads (one tile; a last split of one tile); then the
+# decode path's at batch 1 and 8
 DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
             (1, 16, 4, 80, 640), (4, 8, 4, 256, 1024), (4, 8, 4, 256, 2048),
             (4, 48, 1, 128, 2048), (1, 48, 1, 128, 256), (2, 40, 8, 96, 650),
-            (2, 24, 2, 128, 32), (2, 24, 2, 128, 288), (2, 24, 2, 128, 672)]
+            (2, 8, 2, 100, 256),
+            (2, 24, 2, 128, 32), (2, 24, 2, 128, 288), (2, 24, 2, 128, 672),
+            (2, 8, 4, 256, 32), (2, 8, 4, 256, 160), (2, 48, 1, 128, 32),
+            (2, 48, 1, 128, 96)]
 DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
 # batch invariance at B=8: slice C's heads, granite-34b's and gemma3-4b's
 DA_INVARIANCE = [(8, 24, 2, 128, 4096), (8, 48, 1, 128, 2048),
                  (8, 8, 4, 256, 2048)]
-# timed beside slice C's step shape: slice E's global layers at B=4
-DA_ZOO_TIMED = [(4, 8, 4, 256, 2048), (4, 48, 1, 128, 2048)]
+# timed beside slice C's step shape: slice E's layers at B=4 (gemma3-4b's
+# global and sliding-window ring caches, granite-34b's)
+DA_ZOO_TIMED = [(4, 8, 4, 256, 2048), (4, 8, 4, 256, 1024),
+                (4, 48, 1, 128, 2048)]
 # StarCoder2-3B (arXiv:2402.19173; src/repro/configs/starcoder2_3b.py) in
 # the reference's decode graph: a 4096-slot cache, its sliding window
 STARCODER2_3B = dict(vocab=49152, d_model=3072, n_layers=30, num_heads=24,
@@ -236,16 +246,23 @@ def card_info() -> dict:
 def _da_ptxas(log: str) -> list[dict]:
     """Registers and spill bytes of each decode-attention kernel from the
     assembler's ``-v`` report, the mangled names made readable
-    (``reg_split_kernel<bf16, 3>``: the register form at 3 rows a warp)."""
+    (``reg_split_kernel<bf16, 3>``: the register form at 3 rows a warp;
+    ``tiled_split_kernel<f32, 8, 6>``: the tiled form, 8 row groups of 6
+    rows)."""
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"(reg_split_kernel|split_kernel|combine_kernel)"
-                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?", m.group(1))
+            # the mangled name's length prefix keeps split_kernel from
+            # matching inside reg_ or tiled_split_kernel
+            k = re.search(r"\d(tiled_split_kernel|reg_split_kernel|"
+                          r"split_kernel|combine_kernel)"
+                          r"I(f|13__nv_bfloat16)((?:Li\d+E)*)", m.group(1))
+            args = [] if k is None else re.findall(r"Li(\d+)E", k.group(3))
             name = m.group(1) if k is None else (
-                f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
-                + (f", {k.group(3)}>" if k.group(3) else ">"))
+                f"{k.group(1)}<"
+                + ", ".join(['f32' if k.group(2) == 'f' else 'bf16'] + args)
+                + ">")
             cur = {"kernel": name}
             out.append(cur)
             continue
@@ -273,13 +290,17 @@ def build_kernels() -> None:
     log = _build.build_info["decode_attention"]["log"]
     if log != "(reused)":
         da_k = _da_ptxas(log)
-        reg = [k for k in da_k if k["kernel"].startswith("reg_split")]
         emit(phase="ptxas_decode_attention", kernels=da_k)
-        check(len(reg) == 16 and all(
-            k.get("spill_stores") == 0 and k.get("spill_loads") == 0
-            for k in reg),
-            f"decode attention's register form: want 16 kernels (8 row "
-            f"counts x 2 dtypes) without spills, ptxas says {reg}")
+        # register form: 8 row counts; tiled form: 8 row counts of one
+        # row group and 7 of 8 row groups; each in 2 dtypes
+        for prefix, want in (("reg_split_kernel<", 16),
+                             ("tiled_split_kernel<", 30)):
+            ks = [k for k in da_k if k["kernel"].startswith(prefix)]
+            check(len(ks) == want and all(
+                k.get("spill_stores") == 0 and k.get("spill_loads") == 0
+                for k in ks),
+                f"decode attention's {prefix[:-1]}: want {want} kernels "
+                f"without spills, ptxas says {ks}")
 
 
 # -- phase 3: kernels against their plain versions ------------------------------
@@ -1533,6 +1554,7 @@ def zoo_decode_phase(dev, cfg, batch: int, prompt: int, steps: int,
             step_logits.append(logits)
             gen.append(tok)
         counts, plain_calls = dict(da.launches), dict(da.plain_calls)
+        by_shape = dict(da.launches_by_shape)
         if cuda:
             peak["decode"] = torch.cuda.max_memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1575,7 +1597,7 @@ def zoo_decode_phase(dev, cfg, batch: int, prompt: int, steps: int,
          profile=prof, decode_attention_launches=counts,
          decode_attention_plain_calls=plain_calls,
          phase_s=time.perf_counter() - t_phase)
-    return {"counts": counts, "plain": plain_calls,
+    return {"counts": counts, "plain": plain_calls, "by_shape": by_shape,
             "want": attn_layers * steps}
 
 
@@ -1639,7 +1661,7 @@ def main() -> int:
           "the SSD scan ran its plain version on the Mamba2 path")
     gc.collect()
     torch.cuda.empty_cache()
-    zoo = {}
+    zoo, zoo_shapes = {}, []
     for cfg, prompt, cut in ZOO_RUNS:
         t_zoo = time.perf_counter()
         z = zoo_decode_phase(dev, cfg, ZOO_BATCH, prompt, ZOO_STEPS,
@@ -1653,6 +1675,9 @@ def main() -> int:
         check(z["plain"]["decode_attention"] == 0,
               f"{cfg.name}: decode attention ran its plain version")
         zoo[cfg.name] = z["counts"]["decode_attention"]
+        zoo_shapes += [{"config": cfg.name, "shape": list(k),
+                        "form": da.form(k[1] // k[2], k[3]), "launches": n}
+                       for k, n in z["by_shape"].items()]
         gc.collect()
         torch.cuda.empty_cache()
     shapes = sorted(set(main["shapes"]) | set(SWEEP))
@@ -1690,6 +1715,7 @@ def main() -> int:
         "launches": dec["counts"]["decode_attention"] + sum(zoo.values()),
         "launches_by_path": dict(decode_serve=dec["counts"]["decode_attention"],
                                  **zoo),
+        "launches_by_shape": zoo_shapes,
         "max_abs_err": da_errs["f32"], "max_abs_err_bf16": da_errs["bf16"],
         "ms": da_t["ms"], "plain_ms": da_t["plain_ms"],
         "bound_ms": da_t["bound_ms"], "bound_by": da_t["bound_by"],

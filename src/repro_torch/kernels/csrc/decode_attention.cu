@@ -31,7 +31,8 @@
 //           fixed order: M = max m_s, out = sum e^(m_s-M) acc_s /
 //           max(sum e^(m_s-M) l_s, 1e-30).
 //
-// Two forms of pass 1, chosen by (G, hd) alone (register_form):
+// Three forms of pass 1, chosen by (G, hd) alone (register_form, then
+// tiled_form):
 //
 //   - registers (G <= 32, hd <= 128, hd a multiple of 8): 128 threads, one
 //     CTA per (split, kv head, b), all G rows in it.
@@ -74,7 +75,51 @@
 //       row) for all its rows, and p as broadcast float4 per 4 slots: at
 //       G 12, 7 reads per 48 FMAs.  Each accumulator is scaled by alpha
 //       and then takes one fma per slot in slot order, as before.
-//   - shared memory (any other G, hd <= 256): 256 threads; the
+//   - tiled (every other G with hd a multiple of 8, hd <= 256): 256
+//     threads; one CTA per (split, kv head and group of at most kTiledRows
+//     = 64 query rows, b), so a kv head's rows share each K/V tile read
+//     from device memory (granite-34b's 48 rows: K/V read once per split,
+//     not once per 8-row group).  The split is the wrapper's
+//     (decode_attention.split_c): with at most kSlicedRows rows per CTA,
+//     at most 8 splits of at least 128 slots; with more, 64 slots.
+//     gemma3-4b's caches (C 1024 and 2048) and granite-34b's (C 2048)
+//     each give 128 CTAs at B 4.  Timed on an H100 (NVIDIA H100 80GB
+//     HBM3, 700 W; tools/decode_attention_variants.py): at gemma3-4b's C
+//     2048, 16 splits of 128 slots took 11-13 % longer than 8 of 256 (a
+//     second wave, and twice the partials for the combine pass); at
+//     granite-34b's, splits of 32 or 128 slots took a third longer than
+//     64.
+//     * Tile ring: as the register form's (2 stages of 32-slot K, V and
+//       kpos tiles in the input dtype, 16-byte cp.async.cg copies, K rows
+//       padded by 16 bytes, empty commit groups past the split's end),
+//       with warp w copying slots w, w+8, ... and lane c chunks c, c+32.
+//       At hd 256 f32 a stage is 32 x (1040 + 1024) B + 128 B of kpos, so
+//       the ring takes 132 KB and one CTA fits on an SM.  A third stage
+//       (it fits beside up to 8 query rows) was 2-4 % faster at
+//       gemma3-4b's shapes and 3-4 % slower at granite-34b's: not
+//       kept.  At gemma3-4b's shapes the pass is bound by its loads:
+//       without the logits and P.V it took 96-97 % of its time.  bf16
+//       halves the ring.
+//     * Logits.  The 8 warps are (row groups x hd slices), chosen from
+//       the rows per CTA alone.  Up to kSlicedRows rows (gemma3-4b's G 2):
+//       one row group, warp w takes the 16-byte chunks w, w+8, ... of hd
+//       and lane t slot t; the thread reads each K chunk once for all the
+//       rows, with 4 partial sums a row, and the 8 warps' partial dots are
+//       added through shared memory in warp order.  Above (granite-34b's
+//       48): 8 row groups, warp w owns rows w, w+8, ... over all of hd, as
+//       in the register form.  q comes as broadcast float4 reads.
+//     * Softmax.  Warp w runs the online softmax of rows w, w+8, ... (lane
+//       = slot; xor-butterfly max and sum, so every lane ends with the
+//       same bits), m and l in its registers, p and alpha to shared
+//       memory for P.V.
+//     * P.V.  Accumulators in registers: each thread owns 4-element runs
+//       of hd of its row group's rows and reads each V element once for
+//       all of them.  With one row group, thread i owns run i % 64 and
+//       slots 8 (i / 64).. of each tile (4 slot groups, their sums added
+//       in slot-group order at the end of the split); with 8, lane c
+//       owns runs c and c + 32 of its warp's rows over all 32 slots.
+//   - shared memory (hd not a multiple of 8, hd <= 256; PR 16's form,
+//     which no zoo config reaches): 256 threads; the
 //     accumulators are [rows][hd] f32 in shared memory beside the query
 //     rows, and thread i updates elements i, i + 256, ...  A CTA takes at
 //     most kGroupRows = 8 query rows of a kv head; more rows go to further
@@ -100,7 +145,7 @@
 namespace {
 
 constexpr int kThreads = 128;      // register form; the combine pass
-constexpr int kWideThreads = 256;  // shared-memory form
+constexpr int kWideThreads = 256;  // tiled and shared-memory forms
 constexpr int kTile = 32;          // cache slots per shared-memory tile
 constexpr int kRegG = 32;          // register form: query rows per kv head
 constexpr int kRegHd = 128;        // register form: head_dim at most
@@ -108,7 +153,11 @@ constexpr int kRegHdMultiple = 8;  // register form: 16-byte rows in bf16
 constexpr int kRegWarps = kThreads / 32;   // register form: row groups
 constexpr int kMaxHd = 256;        // head_dim, either form
 constexpr int kGroupRows = 8;      // shared-memory form: query rows per CTA
-constexpr int kStages = 2;         // register form: tiles in the ring
+constexpr int kStages = 2;         // register and tiled forms: ring tiles
+constexpr int kWarps = kWideThreads / 32;  // tiled form
+constexpr int kTiledHdMultiple = 8;  // tiled form: 16-byte rows in bf16
+constexpr int kTiledRows = 64;     // tiled form: query rows per CTA
+constexpr int kSlicedRows = 8;     // tiled form: up to this, warps slice hd
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -178,6 +227,8 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
 bool register_form(int G, int hd) {
   return G <= kRegG && hd <= kRegHd && hd % kRegHdMultiple == 0;
 }
+
+bool tiled_form(int hd) { return hd % kTiledHdMultiple == 0; }
 
 // -- register form -------------------------------------------------------------
 
@@ -380,6 +431,360 @@ cudaError_t launch_reg(const T* q, const T* k, const T* v, const int* kpos,
   return cudaGetLastError();
 }
 
+// -- tiled form ----------------------------------------------------------------
+
+// Query rows per CTA of the tiled form: all of G up to kTiledRows.
+int tiled_rows(int G) { return G < kTiledRows ? G : kTiledRows; }
+
+// Shared memory of the tiled form, RP = kGroups * kRows padded query rows:
+// q [RP][hd], the warps' partial dots [kWarps * kRows][kTile], p
+// [RP][kTile] and alpha [RP] (padded to 16 bytes) in f32, then the ring as
+// the register form's.  At most 213 KB (f32, 64 rows, hd 256); the slot
+// groups' P.V sums [4][RP][hd] f32 reuse the ring after the last tile.
+template <typename T, int kGroups, int kRows>
+size_t tiled_smem_bytes(int hd) {
+  constexpr size_t kRP = kGroups * kRows;
+  return sizeof(float) * (kRP * hd + (size_t)kWarps * kRows * kTile +
+                          kRP * kTile + ((kRP + 3) & ~(size_t)3)) +
+         kStages * (sizeof(T) * (size_t)kTile * (2 * hd + 16 / sizeof(T)) +
+                    sizeof(int) * kTile);
+}
+
+// kGroups row groups of kRows rows each: kGroups = 1 (warps slice hd, at
+// most kSlicedRows rows) or kWarps (warp w owns rows w, w+8, ...).
+template <typename T, int kGroups, int kRows>
+__global__ void __launch_bounds__(kWideThreads, 1)
+tiled_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ kpos,
+                   const int* __restrict__ pos, float* __restrict__ part_acc,
+                   float* __restrict__ part_ml, int C, int kv, int G, int hd,
+                   int rows, int groups, int split_c, int splits, int window,
+                   float scale) {
+  constexpr int kVec = 16 / sizeof(T);       // elements per 16-byte copy
+  constexpr int kRP = kGroups * kRows;       // query rows, padded
+  constexpr int kSlices = kWarps / kGroups;  // logits: hd slices
+  constexpr int kSoftRows = (kRP + kWarps - 1) / kWarps;  // per warp
+  constexpr int kGroupThreads = kWideThreads / kGroups;   // P.V
+  constexpr int kRunStride = kGroupThreads < 64 ? kGroupThreads : 64;
+  constexpr int kSlotGroups = kGroupThreads / kRunStride;
+  constexpr int kRuns = kMaxHd / 4 / kRunStride;          // per thread
+  constexpr int kSlots = kTile / kSlotGroups;             // per slot group
+  static_assert(kGroups == 1 || kGroups == kWarps, "row groups");
+  static_assert(kGroups == kWarps || kRows <= kSlicedRows, "sliced rows");
+
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / groups;
+  const int g0 = (blockIdx.y - h * groups) * rows;
+  const int R = min(rows, G - g0);           // query rows of this CTA
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ks = hd + kVec;                  // K row stride: +16 bytes
+  const int chunks = hd / kVec;              // 16-byte chunks per row
+  const int stage_elems =                    // k, v, then kpos in T units
+      kTile * (ks + hd) + kTile * (int)(sizeof(int) / sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* dot_s = q_s + kRP * hd;             // [kSlices][kRP][kTile]
+  float* p_s = dot_s + kWarps * kRows * kTile;
+  float* a_s = p_s + kRP * kTile;
+  T* ring = reinterpret_cast<T*>(a_s + ((kRP + 3) & ~3));
+
+  const size_t row = (size_t)kv * hd;        // elements between cache slots
+  const T* kb = k + (size_t)b * C * row + (size_t)h * hd;
+  const T* vb = v + (size_t)b * C * row + (size_t)h * hd;
+  const int* kp = kpos + (size_t)b * C;
+  const int c0 = s * split_c;
+  const int tiles = (min(C, c0 + split_c) - c0) / kTile;
+
+  // Tile i of the split into stage st; past the split's end, only the
+  // (empty) commit group.
+  auto fetch = [&](int i, int st) {
+    if (i < tiles) {
+      T* k_st = ring + st * stage_elems;
+      T* v_st = k_st + kTile * ks;
+      int* kp_st = reinterpret_cast<int*>(v_st + kTile * hd);
+      const int t0 = c0 + i * kTile;
+      for (int t = warp; t < kTile; t += kWarps)
+        for (int c = lane; c < chunks; c += 32) {
+          const size_t g = (size_t)(t0 + t) * row + c * kVec;
+          cp_async16(k_st + t * ks + c * kVec, kb + g);
+          cp_async16(v_st + t * hd + c * kVec, vb + g);
+        }
+      if (tid < kTile / 4) cp_async16(kp_st + tid * 4, kp + t0 + tid * 4);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) fetch(i, i);
+
+  // query rows g0 + g, zero past R; warp w loads rows w, w+8, ..., every
+  // load issued before the first store, so the loads overlap (a loop of
+  // load and store waits out each load in turn)
+  const T* qb = q + ((size_t)b * kv * G + (size_t)h * G + g0) * hd;
+  {
+    constexpr int kQ = kMaxHd / 32;          // elements per lane and row
+    float qr[kSoftRows][kQ];
+#pragma unroll
+    for (int j = 0; j < kSoftRows; ++j) {
+      const int g = warp + kWarps * j;
+#pragma unroll
+      for (int e = 0; e < kQ; ++e) {
+        const int d = lane + 32 * e;
+        qr[j][e] = g < R && d < hd ? to_f32(qb[g * hd + d]) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSoftRows; ++j) {
+      const int g = warp + kWarps * j;
+#pragma unroll
+      for (int e = 0; e < kQ; ++e) {
+        const int d = lane + 32 * e;
+        if (g < kRP && d < hd) q_s[g * hd + d] = qr[j][e];
+      }
+    }
+  }
+
+  // logits: this warp's row group and hd slice
+  const int lg = warp / kSlices, sl = warp - lg * kSlices;
+  // P.V: this thread's row group, slot group and first run
+  const int pg = tid / kGroupThreads, pi = tid - pg * kGroupThreads;
+  const int sg = pi / kRunStride, run0 = pi - sg * kRunStride;
+  float m[kSoftRows], l[kSoftRows], acc[kRows][kRuns][4];
+#pragma unroll
+  for (int j = 0; j < kSoftRows; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int r = 0; r < kRuns; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][r][c] = 0.0f;
+  const int now = pos[b];
+  int st = 0;                                // stage of tile i
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();        // tile i is in; every thread is past tile i-1
+    fetch(i + kStages - 1, st == 0 ? kStages - 1 : st - 1);
+    const T* k_st = ring + st * stage_elems;
+    const T* v_st = k_st + kTile * ks;
+    const int* kp_st = reinterpret_cast<const int*>(v_st + kTile * hd);
+
+    // logits over this warp's slice: lane = slot; each 16-byte chunk of K
+    // serves every row of the group
+    float part[kRows][4];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[j][c] = 0.0f;
+    const T* kr = k_st + lane * ks;
+#pragma unroll 2
+    for (int c = sl; c < chunks; c += kSlices) {
+      float kx[kVec];
+      load16(kr + c * kVec, kx);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const float* qr = q_s + (lg + kGroups * j) * hd + c * kVec;
+#pragma unroll
+        for (int e = 0; e < kVec; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          part[j][0] = fmaf(qv.x, kx[e], part[j][0]);
+          part[j][1] = fmaf(qv.y, kx[e + 1], part[j][1]);
+          part[j][2] = fmaf(qv.z, kx[e + 2], part[j][2]);
+          part[j][3] = fmaf(qv.w, kx[e + 3], part[j][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      dot_s[(sl * kRP + lg + kGroups * j) * kTile + lane] =
+          (part[j][0] + part[j][1]) + (part[j][2] + part[j][3]);
+    __syncthreads();
+
+    // online softmax of rows warp, warp + 8, ...: the slices' dots added
+    // in slice order
+    const int kt = kp_st[lane];
+    const int delta = now - kt;
+    const bool valid = kt >= 0 && delta >= 0 && (window <= 0 || delta < window);
+#pragma unroll
+    for (int j = 0; j < kSoftRows; ++j) {
+      const int g = warp + kWarps * j;
+      // always true with 8 row groups: no branch between the rows' chains
+      if (kGroups == kWarps || g < kRP) {
+        float dot = dot_s[g * kTile + lane];
+#pragma unroll
+        for (int x = 1; x < kSlices; ++x)
+          dot += dot_s[(x * kRP + g) * kTile + lane];
+        const float xv = valid ? dot * scale : kNegInf;
+        float mx = xv;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        const float m_cur = fmaxf(m[j], mx);
+        const float p = expf(xv - m_cur);
+        float sum = p;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+        p_s[g * kTile + lane] = p;
+        const float alpha = expf(m[j] - m_cur);
+        if (lane == 0) a_s[g] = alpha;
+        l[j] = l[j] * alpha + sum;
+        m[j] = m_cur;
+      }
+    }
+    __syncthreads();
+
+    // acc[j][:] = acc[j][:] * alpha + sum_t p[j][t] v[t][run]: this
+    // thread's slot group, each V run read once for all its rows
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float alpha = a_s[pg + kGroups * j];
+#pragma unroll
+      for (int r = 0; r < kRuns; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][r][c] *= alpha;
+    }
+#pragma unroll
+    for (int r = 0; r < kRuns; ++r) {
+      const int d0 = (run0 + kRunStride * r) * 4;
+      if (d0 < hd) {
+#pragma unroll 2
+        for (int t = sg * kSlots; t < (sg + 1) * kSlots; t += 4) {
+          float4 pv[kRows];
+#pragma unroll
+          for (int j = 0; j < kRows; ++j)
+            pv[j] = *reinterpret_cast<const float4*>(
+                p_s + (pg + kGroups * j) * kTile + t);
+          const float4 v0 = load4(v_st + (t + 0) * hd + d0);
+          const float4 v1 = load4(v_st + (t + 1) * hd + d0);
+          const float4 v2 = load4(v_st + (t + 2) * hd + d0);
+          const float4 v3 = load4(v_st + (t + 3) * hd + d0);
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            fma4(acc[j][r], pv[j].x, v0);
+            fma4(acc[j][r], pv[j].y, v1);
+            fma4(acc[j][r], pv[j].z, v2);
+            fma4(acc[j][r], pv[j].w, v3);
+          }
+        }
+      }
+    }
+    st = st + 1 == kStages ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+
+  const size_t base = (((size_t)b * kv + h) * splits + s) * G + g0;
+#pragma unroll
+  for (int j = 0; j < kSoftRows; ++j) {
+    const int g = warp + kWarps * j;
+    if (g < R && lane == 0) {
+      part_ml[(base + g) * 2] = m[j];
+      part_ml[(base + g) * 2 + 1] = l[j];
+    }
+  }
+  if constexpr (kSlotGroups > 1) {
+    // slot groups 1.. hand their sums to group 0 through the ring
+    float* pv_s = reinterpret_cast<float*>(ring);   // [kSlotGroups][kRP][hd]
+    __syncthreads();        // every thread is past the last tile
+    if (sg > 0) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+#pragma unroll
+        for (int r = 0; r < kRuns; ++r) {
+          const int d0 = (run0 + kRunStride * r) * 4;
+          if (d0 < hd)
+            *reinterpret_cast<float4*>(
+                pv_s + (sg * kRP + pg + kGroups * j) * hd + d0) =
+                make_float4(acc[j][r][0], acc[j][r][1], acc[j][r][2],
+                            acc[j][r][3]);
+        }
+    }
+    __syncthreads();
+    if (sg > 0) return;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+#pragma unroll
+      for (int r = 0; r < kRuns; ++r) {
+        const int d0 = (run0 + kRunStride * r) * 4;
+        if (d0 < hd)
+          for (int x = 1; x < kSlotGroups; ++x) {
+            const float4 o = *reinterpret_cast<const float4*>(
+                pv_s + (x * kRP + pg + kGroups * j) * hd + d0);
+            acc[j][r][0] += o.x;
+            acc[j][r][1] += o.y;
+            acc[j][r][2] += o.z;
+            acc[j][r][3] += o.w;
+          }
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int g = pg + kGroups * j;
+    if (g < R) {
+#pragma unroll
+      for (int r = 0; r < kRuns; ++r) {
+        const int d0 = (run0 + kRunStride * r) * 4;
+        if (d0 < hd)
+          *reinterpret_cast<float4*>(part_acc + (base + g) * hd + d0) =
+              make_float4(acc[j][r][0], acc[j][r][1], acc[j][r][2],
+                          acc[j][r][3]);
+      }
+    }
+  }
+}
+
+template <typename T, int kGroups, int kRows>
+cudaError_t launch_tiled(const T* q, const T* k, const T* v, const int* kpos,
+                         const int* pos, float* part_acc, float* part_ml,
+                         int B, int C, int kv, int G, int hd, int split_c,
+                         int splits, int window, float scale,
+                         cudaStream_t stream) {
+  const int rows = tiled_rows(G);
+  const int groups = (G + rows - 1) / rows;
+  const size_t smem = tiled_smem_bytes<T, kGroups, kRows>(hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tiled_split_kernel<T, kGroups, kRows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  tiled_split_kernel<T, kGroups, kRows>
+      <<<dim3(splits, kv * groups, B), kWideThreads, smem, stream>>>(
+          q, k, v, kpos, pos, part_acc, part_ml, C, kv, G, hd, rows, groups,
+          split_c, splits, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tiled_form(const T* q, const T* k, const T* v,
+                              const int* kpos, const int* pos,
+                              float* part_acc, float* part_ml, int B, int C,
+                              int kv, int G, int hd, int split_c, int splits,
+                              int window, float scale, cudaStream_t stream) {
+  const int rows = tiled_rows(G);
+#define DA_TILED(GROUPS, R)                                                   \
+  case R:                                                                     \
+    return launch_tiled<T, GROUPS, R>(q, k, v, kpos, pos, part_acc, part_ml,  \
+                                      B, C, kv, G, hd, split_c, splits,       \
+                                      window, scale, stream);
+  if (rows <= kSlicedRows) {
+    switch (rows) {
+      DA_TILED(1, 1) DA_TILED(1, 2) DA_TILED(1, 3) DA_TILED(1, 4)
+      DA_TILED(1, 5) DA_TILED(1, 6) DA_TILED(1, 7) DA_TILED(1, 8)
+    }
+  } else {
+    switch ((rows + kWarps - 1) / kWarps) {
+      DA_TILED(kWarps, 2) DA_TILED(kWarps, 3) DA_TILED(kWarps, 4)
+      DA_TILED(kWarps, 5) DA_TILED(kWarps, 6) DA_TILED(kWarps, 7)
+      DA_TILED(kWarps, 8)
+    }
+  }
+#undef DA_TILED
+  return cudaErrorInvalidValue;
+}
+static_assert(kSlicedRows == kWarps && kTiledRows == 8 * kWarps,
+              "one case per row count");
+
 // -- shared-memory form ----------------------------------------------------------
 
 int group_rows(int G) { return G < kGroupRows ? G : kGroupRows; }
@@ -574,6 +979,10 @@ int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
           ? launch_reg_form<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
                                kv, G, hd, split_c, splits, window, scale,
                                stream)
+      : tiled_form(hd)
+          ? launch_tiled_form<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
+                                 kv, G, hd, split_c, splits, window, scale,
+                                 stream)
           : launch_split<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C, kv,
                             G, hd, split_c, splits, window, scale, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -588,9 +997,10 @@ int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
 // of contiguous buffers: q/out [B,1,kv*G,hd], k/v [B,C,kv,hd], kpos [B,C],
 // pos [B], part_acc [B,kv,splits,G,hd] and part_ml [B,kv,splits,G,2] f32
 // scratch with splits = ceil(C / split_c).  C and split_c are multiples of
-// 32, G >= 1, hd <= 256; window <= 0 means no window.  In the register
-// form (G <= 32, hd <= 128, hd a multiple of 8) k, v and kpos must be
-// 16-byte aligned.  Launches both passes on `stream` and returns
+// 32, G >= 1, hd <= 256; window <= 0 means no window.  With hd a multiple
+// of 8 (the register and tiled forms) k, v and kpos must be 16-byte
+// aligned.  split_c is the wrapper's (decode_attention.split_c).
+// Launches both passes on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
 // the kernel does not take; never synchronises.
 extern "C" int da_decode_f32(const float* q, const float* k, const float* v,

@@ -6,22 +6,24 @@ module's CUDA C++ kernel (``csrc/decode_attention.cu``, built for
 KV cache with a ``kpos`` sidecar (-1 = empty slot) and an optional window;
 the softmax runs online in f32 with masked logits at -1e30.
 
-The kernel splits the cache length into ``SPLIT_C``-slot chunks, one CTA
-per (chunk, kv head and group of query rows, row), and combines the chunks
-in a fixed order, so a row's result never depends on the batch it is
-stacked in.  It takes any group size G = H/kv, any head_dim up to
+The kernel splits the cache length into chunks of :func:`split_c` slots,
+one CTA per (chunk, kv head and group of query rows, row), and combines
+the chunks in a fixed order, so a row's result never depends on the batch
+it is stacked in.  It takes any group size G = H/kv, any head_dim up to
 ``MAX_HD`` (the wrapper raises above it, on any device) and a C that is a
 multiple of ``BLOCK_C`` (:func:`repro_torch.kernels.ops.decode_attention`
-pads the cache with ``kpos = -1``).  Its first pass has two forms, chosen
-by (G, hd) alone (:func:`form`): the register form streams K/V tiles
-through a ring of 16-byte ``cp.async`` copies, so on a card it needs k, v
-and kpos 16-byte aligned (the wrapper raises otherwise); the shared-memory
-form takes the rest of the domain.
+pads the cache with ``kpos = -1``).  Its first pass has three forms,
+chosen by (G, hd) alone (:func:`form`): the register and tiled forms
+stream K/V tiles through a ring of 16-byte ``cp.async`` copies, so on a
+card they need k, v and kpos 16-byte aligned (the wrapper raises
+otherwise); the shared-memory form takes the head_dims that are not a
+multiple of 8.
 
 A wrapper given CPU tensors runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`); given CUDA tensors
 it launches the kernel or raises.  ``launches`` counts kernel launches
-only; ``plain_calls`` counts the CPU path.
+only, and ``launches_by_shape`` the same launches by (B, H, kv, hd, C);
+``plain_calls`` counts the CPU path.
 """
 from __future__ import annotations
 
@@ -32,19 +34,33 @@ import torch
 from repro_torch.kernels import ref
 
 BLOCK_C = 32          # cache slots per shared-memory tile (csrc kTile)
-SPLIT_C = 256         # cache slots per CTA: the split depends on C only
+SPLIT_C = 256         # cache slots per CTA, register and shared-memory forms
 MAX_HD = 256          # head_dim (csrc kMaxHd); any number of query rows
 REG_MAX_G = 32        # register form: query rows per kv head (csrc kRegG)
 REG_MAX_HD = 128      # register form: head_dim at most (csrc kRegHd)
 REG_HD_MULTIPLE = 8   # register form: head_dim a multiple (kRegHdMultiple)
-ALIGN = 16            # register form: bytes of alignment of k, v and kpos
+TILED_HD_MULTIPLE = 8  # tiled form: head_dim a multiple (kTiledHdMultiple)
+TILED_ROWS = 64       # tiled form: query rows per CTA (csrc kTiledRows)
+SLICED_ROWS = 8       # tiled form: up to this, warps slice hd (kSlicedRows)
+# tiled form, at most SLICED_ROWS rows per CTA: at most TILED_SPLITS splits
+# of at least TILED_SPLIT_C slots (few splits keep the combine pass short,
+# each CTA streams 4 tiles or more); with more rows (more arithmetic per
+# slot), TILED_WIDE_SPLIT_C slots.  128 CTAs each at gemma3-4b's ring
+# (C 1024) and global (C 2048) caches and at granite-34b's (C 2048), B 4.
+TILED_SPLIT_C = 128
+TILED_SPLITS = 8
+TILED_WIDE_SPLIT_C = 64
+ALIGN = 16            # register and tiled forms: bytes of alignment of k,
+                      # v and kpos
 
 launches = {"decode_attention": 0}
+launches_by_shape: dict[tuple[int, ...], int] = {}
 plain_calls = {"decode_attention": 0}
 
 
 def reset_counts() -> None:
     launches["decode_attention"] = 0
+    launches_by_shape.clear()
     plain_calls["decode_attention"] = 0
 
 
@@ -65,16 +81,30 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def splits(C: int) -> int:
-    """Number of C chunks (CTAs per kv head and row) the kernel uses."""
-    return -(-C // SPLIT_C)
-
-
 def form(G: int, hd: int) -> str:
     """The kernel's first-pass form for G query rows per kv head at head_dim
-    ``hd``: "register" or "shared" (csrc ``register_form``)."""
-    return ("register" if G <= REG_MAX_G and hd <= REG_MAX_HD
-            and hd % REG_HD_MULTIPLE == 0 else "shared")
+    ``hd``: "register", "tiled" or "shared" (csrc ``register_form``, then
+    ``tiled_form``)."""
+    if G <= REG_MAX_G and hd <= REG_MAX_HD and hd % REG_HD_MULTIPLE == 0:
+        return "register"
+    return "tiled" if hd % TILED_HD_MULTIPLE == 0 else "shared"
+
+
+def split_c(C: int, G: int, hd: int) -> int:
+    """Cache slots per CTA for a C-slot cache and G query rows per kv head
+    at head_dim ``hd``: a multiple of ``BLOCK_C``."""
+    if form(G, hd) != "tiled":
+        return SPLIT_C
+    if min(G, TILED_ROWS) > SLICED_ROWS:
+        return TILED_WIDE_SPLIT_C
+    return max(TILED_SPLIT_C, -(-C // (TILED_SPLITS * BLOCK_C)) * BLOCK_C)
+
+
+def splits(C: int, G: int, hd: int) -> int:
+    """Number of C chunks (CTAs per kv head, row group and row) the kernel
+    uses.  It depends on C, G and hd alone, never on the batch, so a row's
+    result is the same alone and stacked."""
+    return -(-C // split_c(C, G, hd))
 
 
 def _check_shapes(q, k, v, kpos, pos, window) -> tuple[int, ...]:
@@ -128,14 +158,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if C % BLOCK_C:
         raise ValueError(f"decode_attention: C={C} is not a multiple of "
                          f"{BLOCK_C} (ops.decode_attention pads it)")
-    if form(G, hd) == "register":
+    f = form(G, hd)
+    if f != "shared":
         bad = [name for name, t in (("k", k), ("v", v), ("kpos", kpos))
                if t.data_ptr() % ALIGN]
         if bad:
             raise ValueError(f"decode_attention: {'/'.join(bad)} not "
-                             f"{ALIGN}-byte aligned; the register form "
+                             f"{ALIGN}-byte aligned; the {f} form "
                              f"(G={G}, hd={hd}) copies 16-byte chunks")
-    n = splits(C)
+    n = splits(C, G, hd)
     part_acc = torch.empty((B, kv, n, G, hd), dtype=torch.float32, device=dev)
     part_ml = torch.empty((B, kv, n, G, 2), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
@@ -143,11 +174,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else _lib().da_decode_bf16
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
              pos.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-             out.data_ptr(), B, C, kv, G, hd, SPLIT_C,
+             out.data_ptr(), B, C, kv, G, hd, split_c(C, G, hd),
              0 if window is None else int(window), float(scale),
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention: CUDA launch failed with "
                            f"error {err}")
     launches["decode_attention"] += 1
+    shape = (B, H, kv, hd, C)
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return out

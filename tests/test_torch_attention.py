@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import decode_attention as jda
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
@@ -239,10 +240,11 @@ def test_init_cache_and_attn_flops_match_jax():
 # -- decode attention: the plain version and the wrappers ------------------------
 
 # tests/test_kernels.py's sweep, then the zoo's widest heads: gemma3-4b's
-# (G 2 at hd 256), granite-34b's (MQA, G 48) and G 5 at hd 96
+# (G 2 at hd 256), granite-34b's (MQA, G 48) and G 5 at hd 96; then hd 100,
+# the shared-memory form's domain
 SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
          (1, 16, 4, 80, 640), (2, 8, 4, 256, 1024), (1, 48, 1, 128, 512),
-         (2, 40, 8, 96, 640)]
+         (2, 40, 8, 96, 640), (2, 8, 2, 100, 256)]
 
 
 def _da_inputs(B, H, kv, hd, C, seed=0, empty=50):
@@ -332,7 +334,25 @@ def test_decode_attention_wrapper_checks_its_inputs():
         tda.decode_attention(q, k, v, kpos[:, :5], pos, None, 0.1)
     with pytest.raises(ValueError):
         tda.decode_attention(q, k, v, kpos, pos, 0, 0.1)
-    assert tda.splits(4096) == 16 and tda.splits(100) == 1
+    # the split depends on C, G and hd alone: SPLIT_C slots in the register
+    # and shared-memory forms; in the tiled form at most TILED_SPLITS splits
+    # of at least TILED_SPLIT_C slots up to SLICED_ROWS rows per CTA, and
+    # TILED_WIDE_SPLIT_C slots above
+    import inspect
+    assert list(inspect.signature(tda.splits).parameters) == ["C", "G", "hd"]
+    assert tda.splits(4096, 12, 128) == 16 and tda.splits(100, 12, 128) == 1
+    assert tda.splits(512, 4, 100) == 2
+    assert (tda.TILED_SPLIT_C, tda.TILED_SPLITS, tda.TILED_WIDE_SPLIT_C) \
+        == (128, 8, 64)
+    assert tda.split_c(1024, 2, 256) == 128 and tda.splits(1024, 2, 256) == 8
+    assert tda.split_c(2048, 2, 256) == 256 and tda.splits(2048, 2, 256) == 8
+    assert tda.split_c(1088, 2, 256) == 160 and tda.splits(1088, 2, 256) == 7
+    assert tda.splits(160, 2, 256) == 2 and tda.splits(32, 2, 256) == 1
+    assert tda.splits(2048, 48, 128) == 32 and tda.splits(160, 48, 128) == 3
+    assert tda.splits(2048, 8, 256) == 8 and tda.splits(2048, 9, 256) == 32
+    assert all(tda.split_c(C, G, hd) % tda.BLOCK_C == 0
+               for C in range(32, 5000, 32) for G, hd in
+               [(2, 256), (48, 128), (12, 128), (4, 100)])
 
 
 def test_decode_attention_limits_equal_the_kernel_source():
@@ -351,6 +371,9 @@ def test_decode_attention_limits_equal_the_kernel_source():
     assert tda.REG_MAX_G == const("kRegG") == 32
     assert tda.REG_MAX_HD == const("kRegHd") == 128
     assert tda.REG_HD_MULTIPLE == const("kRegHdMultiple") == 8
+    assert tda.TILED_HD_MULTIPLE == const("kTiledHdMultiple") == 8
+    assert tda.TILED_ROWS == const("kTiledRows") == 64
+    assert tda.SLICED_ROWS == const("kSlicedRows") == 8
     assert not hasattr(tda, "MAX_G") and "kMaxG" not in src
     ok = [torch.from_numpy(a) for a in _da_inputs(1, 48, 1, 256, 64)]
     assert tops.decode_attention(*ok, None, 0.1).shape == (1, 1, 48, 256)
@@ -361,9 +384,11 @@ def test_decode_attention_limits_equal_the_kernel_source():
 
 
 def test_decode_attention_form_matches_the_kernel_source():
-    """``form()`` mirrors the source's ``register_form``: the register form
-    for G <= kRegG and hd <= kRegHd with hd a multiple of kRegHdMultiple,
-    the shared-memory form for every other (G, hd)."""
+    """``form()`` mirrors the source's ``register_form`` then
+    ``tiled_form``: the register form for G <= kRegG and hd <= kRegHd with
+    hd a multiple of kRegHdMultiple, the tiled form for every other (G, hd)
+    with hd a multiple of kTiledHdMultiple, the shared-memory form for the
+    rest."""
     import os
     import re
     src = open(os.path.join(os.path.dirname(tda.__file__), "csrc",
@@ -374,15 +399,23 @@ def test_decode_attention_form_matches_the_kernel_source():
 
     assert (tda.REG_MAX_G, tda.REG_MAX_HD, tda.REG_HD_MULTIPLE) == (
         const("kRegG"), const("kRegHd"), const("kRegHdMultiple"))
+    assert tda.TILED_HD_MULTIPLE == const("kTiledHdMultiple")
     assert re.search(r"return G <= kRegG && hd <= kRegHd && "
                      r"hd % kRegHdMultiple == 0;", src)
+    assert re.search(r"bool tiled_form\(int hd\) \{ return hd % "
+                     r"kTiledHdMultiple == 0; \}", src)
+    assert re.search(r"register_form\(G, hd\)\s*\?\s*launch_reg_form<T>"
+                     r"[^;]*:\s*tiled_form\(hd\)\s*\?\s*launch_tiled_form<T>"
+                     r"[^;]*:\s*launch_split<T>", src)
     # slice C's heads, then the reference sweep's
     for G, hd in [(12, 128), (1, 64), (4, 64), (8, 128), (4, 80), (5, 96),
                   (32, 128)]:
         assert tda.form(G, hd) == "register", (G, hd)
-    # gemma3-4b, granite-34b, past kRegG, an hd off the 8-multiple, past
-    # kRegHd
-    for G, hd in [(2, 256), (48, 128), (33, 64), (4, 100), (4, 136)]:
+    # gemma3-4b, granite-34b, past kRegG, past kRegHd, past kTiledRows
+    for G, hd in [(2, 256), (48, 128), (33, 64), (4, 136), (70, 64)]:
+        assert tda.form(G, hd) == "tiled", (G, hd)
+    # head_dims off the 8-multiple, in and past the register form's range
+    for G, hd in [(4, 100), (48, 100), (2, 250), (1, 4)]:
         assert tda.form(G, hd) == "shared", (G, hd)
 
 
@@ -401,6 +434,110 @@ def test_decode_attention_offset_k_view_on_cpu_runs_plain_version():
     assert torch.equal(got, want)
     assert tda.plain_calls == {"decode_attention": 1}
     assert tda.launches == {"decode_attention": 0}
+
+
+# -- the tiled form's decomposition, in plain torch ----------------------------
+
+def _tiled_decomposition(q, k, v, kpos, pos, window, scale):
+    """The decomposition ``csrc/decode_attention.cu``'s tiled form
+    computes, in plain torch (f32), to hold its algebra against the
+    oracles: splits of ``split_c(C, G, hd)`` slots in 32-slot tiles; each
+    tile's logits as partial dots over hd slices (16-byte chunk c in slice
+    c % S: S = 8 at most SLICED_ROWS rows per CTA, else 1) added in slice
+    order; an online softmax per tile; P.V in slot groups (4 at S = 8,
+    else 1) added in slot-group order at the split's end; per split
+    (m, l, acc); then the combine over the splits in order."""
+    f32 = torch.float32
+    B, _, H, hd = q.shape
+    C, kv = k.shape[1], k.shape[2]
+    G = H // kv
+    assert tda.form(G, hd) == "tiled"
+    sliced = min(G, tda.TILED_ROWS) <= tda.SLICED_ROWS
+    S, SG = (8, 4) if sliced else (1, 1)
+    vec = 16 // k.element_size()
+    slice_of = (torch.arange(hd) // vec) % S                  # per element
+    qg = q.to(f32).reshape(B, kv, G, hd)
+    kk, vv = (t.to(f32).permute(0, 2, 1, 3) for t in (k, v))  # [B,kv,C,hd]
+    sc = tda.split_c(C, G, hd)
+    parts = []
+    for s in range(tda.splits(C, G, hd)):
+        m = torch.full((B, kv, G), -1e30)
+        l = torch.zeros((B, kv, G))
+        acc = torch.zeros((SG, B, kv, G, hd))
+        for t0 in range(s * sc, min(C, (s + 1) * sc), tda.BLOCK_C):
+            ks, vs = kk[:, :, t0:t0 + 32], vv[:, :, t0:t0 + 32]
+            dot = None
+            for x in range(S):
+                sel = slice_of == x
+                d = torch.einsum("bkgd,bktd->bkgt", qg[..., sel], ks[..., sel])
+                dot = d if dot is None else dot + d
+            kp = kpos[:, t0:t0 + 32]
+            delta = pos[:, None] - kp
+            valid = (kp >= 0) & (delta >= 0)
+            if window is not None:
+                valid &= delta < window
+            x = torch.where(valid[:, None, None, :], dot * scale,
+                            torch.tensor(-1e30))
+            m_cur = torch.maximum(m, x.amax(-1))
+            p = torch.exp(x - m_cur[..., None])
+            alpha = torch.exp(m - m_cur)
+            l = l * alpha + p.sum(-1)
+            m = m_cur
+            for g in range(SG):
+                t = slice(g * 32 // SG, (g + 1) * 32 // SG)
+                acc[g] = acc[g] * alpha[..., None] + torch.einsum(
+                    "bkgt,bktd->bkgd", p[..., t], vs[:, :, t])
+        a = acc[0]
+        for g in range(1, SG):
+            a = a + acc[g]
+        parts.append((m, l, a))
+    M = parts[0][0]
+    for m, _, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    L, A = torch.zeros_like(M), torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        w = torch.exp(m - M)
+        L, A = L + w * l, A + w[..., None] * a
+    return (A / torch.clamp(L, min=1e-30)[..., None]).reshape(B, 1, H, hd)
+
+
+# gemma3-4b's heads (G 2 at hd 256: warps slice hd, 4 slot groups) over
+# splits of 128 slots with a last split of two tiles and over 7 splits of
+# 160 with a last of four, and granite-34b's (G 48: one row group per warp)
+# over splits of 64 with a last split of one
+TILED_GEOMETRY = [(2, 8, 4, 256, 320), (1, 8, 4, 256, 1088),
+                  (2, 48, 1, 128, 160)]
+
+
+@pytest.mark.parametrize("B,H,kv,hd,C", TILED_GEOMETRY)
+@pytest.mark.parametrize("window,empty", [(None, 50), (128, 50),
+                                          (None, None)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiled_form_decomposition_matches_the_oracles(B, H, kv, hd, C,
+                                                      window, empty, dtype):
+    """The tiled form's decomposition against the JAX oracle and the
+    Pallas kernel in interpret mode; ``empty=None`` is the all-empty cache
+    (finite, uniform weights)."""
+    q, k, v, kpos, pos = _da_inputs(B, H, kv, hd, C, seed=hd + C,
+                                    empty=50 if empty is None else empty)
+    if empty is None:
+        kpos[:] = -1
+        pos[:] = 0
+    (qj, kj, vj), (qt, kt, vt) = _as(dtype, q, k, v)
+    scale = 1.0 / np.sqrt(hd)
+    tol = BF16_ATOL if dtype == "bf16" else ATTN_ATOL
+    got = _tiled_decomposition(qt, kt, vt, torch.from_numpy(kpos),
+                               torch.from_numpy(pos), window, scale)
+    assert bool(torch.isfinite(got).all())
+    _close(got, jref.decode_attention_ref(qj, kj, vj, jnp.asarray(kpos),
+                                          jnp.asarray(pos), window, scale),
+           tol)
+    if empty is None and C % min(jda.BLOCK_C, C):
+        # the Pallas wrapper pads C to its block, and an all-empty cache
+        # weighs the padding slots too: there only the oracle applies
+        return
+    _close(got, jops.decode_attention(qj, kj, vj, jnp.asarray(kpos),
+                                      jnp.asarray(pos), window, scale), tol)
 
 
 # -- the CUDA kernel against its plain version (needs a card) ------------------
@@ -484,6 +621,56 @@ def test_cuda_decode_attention_register_form_batch_invariant_windowed(
 def test_cuda_decode_attention_misaligned_k_raises(cuda_device):
     q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
                           for a in _da_inputs(2, 24, 2, 128, 64, seed=3))
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda_device)
+    k_off = buf[1:].view(k.shape)
+    k_off.copy_(k)
+    tda.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tda.decode_attention(q, k_off, v, kpos, pos, None, 0.1)
+    assert tda.launches == {"decode_attention": 0}
+
+
+# tiled form at gemma3-4b's and granite-34b's heads: one tile (nothing to
+# prefetch), a last split of one tile (splits of 128 and 64 slots)
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,kv,hd,C", [(8, 4, 256, 32), (8, 4, 256, 160),
+                                       (48, 1, 128, 32), (48, 1, 128, 96)])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_tiled_form_edge_cs(cuda_device, H, kv, hd, C,
+                                                  window, dtype):
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in _da_inputs(2, H, kv, hd, C, seed=C, empty=C // 4)]
+    q, k, v = (a.to(dtype) for a in arrs[:3])
+    assert tda.form(H // kv, hd) == "tiled"
+    tda.reset_counts()
+    out = tda.decode_attention(q, k, v, arrs[3], arrs[4], window, 0.1)
+    torch.cuda.synchronize()
+    assert tda.launches == {"decode_attention": 1}
+    want = tref.decode_attention_ref(q, k, v, arrs[3], arrs[4], window, 0.1)
+    tol = BF16_ATOL if dtype == torch.bfloat16 else ATTN_ATOL
+    assert (out.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,kv,hd", [(48, 1, 128), (8, 4, 256)])
+def test_cuda_decode_attention_tiled_form_batch_invariant_windowed(
+        cuda_device, H, kv, hd):
+    q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
+                          for a in _da_inputs(8, H, kv, hd, 2048, seed=2))
+    pos = torch.arange(8, dtype=torch.int32, device=cuda_device) * 200 + 100
+    full = tda.decode_attention(q, k, v, kpos, pos, 128, 0.1)
+    one = tda.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4], pos[3:4],
+                               128, 0.1)
+    assert torch.equal(full[3:4], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,kv,hd", [(48, 1, 128), (8, 4, 256)])
+def test_cuda_decode_attention_tiled_form_misaligned_k_raises(cuda_device, H,
+                                                              kv, hd):
+    q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
+                          for a in _da_inputs(2, H, kv, hd, 64, seed=3))
     buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda_device)
     k_off = buf[1:].view(k.shape)
     k_off.copy_(k)
