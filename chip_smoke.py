@@ -11,26 +11,36 @@ Phases, each printing JSON records on their own lines:
    assembler's register report; decode attention's register and tiled
    forms must build without spills in both dtypes;
 3. each kernel against its plain PyTorch version on the card: block
-   quantization byte for byte at the wire shapes and on edge-case tiles
-   (the subnormal tiles also against the reference's pinned values),
-   decode attention within 1e-5 (f32) / 2e-2 (bf16) on the reference's
+   quantization byte for byte at the grid shapes and on edge-case tiles
+   (the subnormal tiles also against the reference's pinned values), and
+   in its ragged form (the first n values of a zero-padded grid) at the
+   q8 wire's leaf sizes (``RAGGED``: parts of a tile, slice A's batch-1
+   and batch-4 leaves, n not a multiple of 4) and the edge tiles, where
+   ``quantize_wire`` / ``dequantize_wire`` on the card must also give the
+   plain wire path's bytes; decode attention within 1e-5 (f32) / 2e-2
+   (bf16) on the reference's
    sweep, the zoo's widest heads (G 2 at hd 256, G 48 at hd 128, G 5 at
    hd 96 with a padded C), hd 100 (the shared-memory form), the register
    form's edge Cs (32, 288, 672) and the tiled form's at hd 256 and G 48
-   (one tile, a last split of one tile), the decode path's shapes and an
-   all-empty cache, and batch-invariant
+   (one tile, a last split of one tile), the decode path's shapes, an
+   all-empty cache and an all-empty row of a padded C (100 and 650, all
+   three forms: the padding gets no weight), and batch-invariant
    bit for bit at G 12, 48 and hd 256, window None and 128; the SSD
    scan on the reference's sweep (its bars 1e-4 / 5e-2), Mamba2-2.7B's
    prefill shape, a ragged 100-token chunk and a chunk whose decay
    overflows the TPU kernel (finite), and 4 chunks against 2 + 2; after
    the main paths, each kernel is timed with CUDA events at the path's
-   shapes, on the device (calls captured in a CUDA graph and replayed)
+   shapes (block quantization at slice A's leaves in its ragged form,
+   bound on the bytes it moves, and at the grid shapes), on the
+   device (calls captured in a CUDA graph and replayed)
    and per call from Python, with inputs rotated through more than the
    50 MB L2, beside its bound, its plain version and, for decode
    attention (at slice C's shape in f32 and bf16, gemma3-4b's local and
    global layers' and granite-34b's), ``scaled_dot_product_attention``;
    the SSD scan's five
-   phases are timed from one profiler pass;
+   phases are timed from one profiler pass; and one whole
+   ``quantize_wire`` and ``dequantize_wire`` call per slice A leaf is
+   timed from Python beside the padded wire path they replaced;
 4. slice A's path at full width: ResNet50 (224x224, 1000 classes, seeded
    fan-in-scaled weights) cut by ``balanced_latency`` into a 4-stage chain
    with one replicated stage, served by ``InferenceEngine(device="cuda")``
@@ -117,6 +127,15 @@ from repro_torch.runtime import (DispatcherCodecs, InferenceEngine,  # noqa: E40
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM, float32 outside the tensor cores
 SWEEP = [(8, 128), (2048, 128), (4096, 128), (32768, 128), (1024, 512)]
+# the q8 wire's ragged leaves (n values of a zero-padded power-of-two tile
+# grid): parts of a tile, one off a tile either way, slice A's batch-1
+# leaves (ResNet50's input; stem_pool, s0b0_c2 and s2b0_add; s1b0_add),
+# their batch-4 sizes, one past the largest batch-1 leaf
+RAGGED = [1, 3, 1000, 1023, 1025, 150_528, 200_704, 401_408, 602_112,
+          802_816, 1_605_632, 401_409]
+# timed: the logits (one tile) and the batch-1 and batch-4 leaves
+RAGGED_TIMED = [1000, 150_528, 200_704, 401_408, 602_112, 802_816,
+                1_605_632]
 RAW_TOL_REL = 1e-4      # chain vs single-device on the card: batched cuDNN
 CPU_TOL_REL = 1e-3      # card vs CPU apply (different conv algorithms)
 Q8_REL = 0.05           # 5 quantize passes, each within absmax/254
@@ -140,6 +159,12 @@ DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
             (2, 8, 4, 256, 32), (2, 8, 4, 256, 160), (2, 48, 1, 128, 32),
             (2, 48, 1, 128, 96)]
 DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
+# an all-empty row 0 beside a filled row 1 at C 100 and 650, which
+# ops.decode_attention pads for the kernel (the padding must get no
+# weight): the register, tiled and shared-memory forms
+DA_EMPTY_ROW = [(2, 24, 2, 128, 100), (2, 24, 2, 128, 650),
+                (2, 8, 4, 256, 100), (2, 8, 4, 256, 650),
+                (2, 8, 2, 100, 100), (2, 8, 2, 100, 650)]
 # batch invariance at B=8: slice C's heads, granite-34b's and gemma3-4b's
 DA_INVARIANCE = [(8, 24, 2, 128, 4096), (8, 48, 1, 128, 2048),
                  (8, 8, 4, 256, 2048)]
@@ -374,7 +399,46 @@ def compare_kernels(dev) -> dict:
         check(same_q, f"quantize kernel != plain version at {shape}")
         check(same_d, f"dequantize kernel != plain version at {shape}")
     _check_subnormal_table(q, s)            # the last case: the edge tiles
+    edge = _edge_tiles().reshape(-1)
+    cases = [(n, _data((n,), seed=n)) for n in RAGGED]
+    cases += [(edge.numel(), edge), (edge.numel() - 5, edge[:-5])]
+    for n, x in cases:
+        compare_ragged(dev, n, x, err)
     return err
+
+
+def compare_ragged(dev, n: int, x: torch.Tensor, err: dict) -> None:
+    """The ragged kernels (n values of a zero-padded power-of-two tile
+    grid) against their plain versions, bit for bit: q, the scales of
+    every tile and the dequantized values; then ``quantize_wire`` /
+    ``dequantize_wire`` on the card against the plain wire path (the CPU
+    device), byte for byte."""
+    xd, tiles = x.to(dev), bq.wire_tiles(n)
+    q, s = bq.wire_views(bq.quantize_ragged(xd, tiles), n, tiles)
+    out = bq.dequantize_ragged(q, s)
+    torch.cuda.synchronize()
+    qr, sr = bq.wire_views(ref.quantize_ragged_ref(xd, tiles), n, tiles)
+    outr = ref.dequantize_ragged_ref(qr, sr)
+    same_q = torch.equal(q, qr) and torch.equal(_bits(s), _bits(sr))
+    same_d = torch.equal(_bits(out), _bits(outr))
+    eq = float(max((q.int() - qr.int()).abs().max().item(),
+                   (s - sr).abs().max().item()))
+    ed = float((out - outr).abs().max().item())
+    err["quantize_blocks"] = max(err["quantize_blocks"], eq)
+    err["dequantize_blocks"] = max(err["dequantize_blocks"], ed)
+    a = x.numpy()
+    qw, sw = bq.quantize_wire(a, device=dev)
+    qc, sc = bq.quantize_wire(a, device="cpu")
+    dw = bq.dequantize_wire(qw, sw, n, (n,), np.float32, device=dev)
+    dc = bq.dequantize_wire(qc, sc, n, (n,), np.float32, device="cpu")
+    same_w = (qw.tobytes() == qc.tobytes() and sw.tobytes() == sc.tobytes()
+              and dw.tobytes() == dc.tobytes())
+    emit(phase="ragged_vs_plain", n=n, tiles=tiles,
+         quantize_identical=same_q, dequantize_identical=same_d,
+         wire_identical=same_w, max_abs_err_q=eq, max_abs_err_dq=ed)
+    check(same_q, f"ragged quantize kernel != plain version at n={n}")
+    check(same_d, f"ragged dequantize kernel != plain version at n={n}")
+    check(same_w, f"q8 wire on the card != the plain wire path at n={n}")
 
 
 def _da_inputs(B, H, kv, hd, C, seed, dev, dtype=torch.float32,
@@ -400,12 +464,15 @@ def compare_decode_attention(dev) -> dict:
     """Decode-attention kernel vs its plain version on the card, in f32 and
     bf16, window None and 128: the reference's sweep (through
     ``ops.decode_attention``, whose padding C=640 exercises), the decode
-    path's shapes with rows at different fill levels, and an all-empty
-    cache, which must stay finite.  Returns the largest error per dtype."""
+    path's shapes with rows at different fill levels, an all-empty
+    cache, which must stay finite, and an all-empty row of a padded C
+    (``DA_EMPTY_ROW``; the plain version runs on the unpadded cache).
+    Returns the largest error per dtype."""
     err = {"f32": 0.0, "bf16": 0.0}
     cases = [(s, None) for s in DA_SWEEP]
     cases += [(s, [128 + 497 * b for b in range(s[0])]) for s in DA_PATH]
     cases += [(DA_PATH[1], [0] * DA_PATH[1][0])]              # all empty
+    cases += [(s, [0, s[4] - 30]) for s in DA_EMPTY_ROW]
     for i, ((B, H, kv, hd, C), valid) in enumerate(cases):
         for dtype, name, tol in ((torch.float32, "f32", DA_F32_ATOL),
                                  (torch.bfloat16, "bf16", DA_BF16_ATOL)):
@@ -423,6 +490,7 @@ def compare_decode_attention(dev) -> dict:
                 emit(phase="decode_attention_vs_plain",
                      shape=[B, H, kv, hd, C], dtype=name, window=window,
                      all_empty=valid is not None and not any(valid),
+                     empty_rows=0 if valid is None else valid.count(0),
                      max_abs_err=e, tol=tol, finite=finite)
                 check(finite and e <= tol,
                       f"decode attention kernel vs plain at "
@@ -513,6 +581,88 @@ def _bounds(R: int, C: int) -> dict:
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         out[name] = {"bytes": b, "bound_ms": max(t_b, t_o),
                      "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+def _ragged_bounds(n: int, tiles: int) -> dict:
+    """What the ragged kernels really move: quantize reads 4n bytes and
+    writes n int8 and a scale for each of the grid's tiles; dequantize
+    reads n int8 and the scales of the tiles that hold them and writes
+    4n."""
+    used = -(-n // 1024)
+    out = {}
+    for name, b, ops_ in (("quantize_blocks", 4 * n + n + 4 * tiles, 6 * n),
+                          ("dequantize_blocks", n + 4 * used + 4 * n, n)):
+        t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
+        out[name] = {"bytes": b, "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
+def time_ragged(dev, sizes) -> dict:
+    """The ragged kernels and their plain versions at the wire's leaf
+    sizes, on the device (CUDA graph replay) and per call from Python,
+    beside the bound on the bytes they move; keyed by (n, kernel)."""
+    res = {}
+    for n in sizes:
+        tiles = bq.wire_tiles(n)
+        nbuf = max(2, min(256, -(-(128 << 20) // (4 * n))))
+        base = [_data((n,), seed=k).to(dev) for k in range(min(nbuf, 4))]
+        xs = [(base[k % len(base)].clone(), tiles) for k in range(nbuf)]
+        qs = [bq.wire_views(bq.quantize_ragged(x, t), n, t) for x, t in xs]
+        fns = {"quantize_blocks": (bq.quantize_ragged,
+                                   ref.quantize_ragged_ref, xs),
+               "dequantize_blocks": (bq.dequantize_ragged,
+                                     ref.dequantize_ragged_ref, qs)}
+        bounds = _ragged_bounds(n, tiles)
+        for name, (kernel, plain, args) in fns.items():
+            ms = _device_ms(kernel, args)
+            rec = dict(n=n, tiles=tiles, kernel=name, ms=ms,
+                       plain_ms=_device_ms(plain, args),
+                       call_ms=_call_ms(kernel, args),
+                       plain_call_ms=_call_ms(plain, args),
+                       buffers=nbuf, **bounds[name])
+            rec["bandwidth_gb_s"] = bounds[name]["bytes"] / (ms * 1e-3) / 1e9
+            emit(phase="kernel_time", **rec)
+            res[(n, name)] = rec
+        del xs, qs, base
+        torch.cuda.empty_cache()
+    return res
+
+
+def time_wire(dev, sizes, iters: int = 50) -> list[dict]:
+    """One whole ``quantize_wire`` and ``dequantize_wire`` call per leaf
+    from Python, host clock (each call ends in a synchronise): the port's
+    (unpadded, its thread's own stream, one copy each way) and the padded
+    path it replaced (``tools/q8_wire.py``: host padding to the blob's
+    power-of-two tile count, pageable copies on the default stream, two
+    copies back), in turns (padded, port, port, padded)."""
+    from tools import q8_wire
+    paths = {"port": (bq.quantize_wire, bq.dequantize_wire),
+             "padded": (q8_wire.quantize_wire_padded,
+                        q8_wire.dequantize_wire_padded)}
+    out = []
+    for n in sizes:
+        a = _data((n,), seed=n).numpy()
+        q, s = bq.quantize_wire(a, device=dev)
+        times: dict[str, list[float]] = {}
+        for name in ("padded", "port", "port", "padded"):
+            quant, dequant = paths[name]
+            for what, fn, args in (
+                    ("quantize", quant, (a, dev)),
+                    ("dequantize", dequant, (q, s, n, (n,), np.float32,
+                                             dev))):
+                for _ in range(3):
+                    fn(*args)
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn(*args)
+                times.setdefault(f"{name}_{what}", []).append(
+                    (time.perf_counter() - t0) / iters * 1e3)
+        rec = {"n": n, "tiles": bq.wire_tiles(n),
+               **{k + "_ms": v for k, v in times.items()}}
+        emit(phase="wire_time", **rec)
+        out.append(rec)
     return out
 
 
@@ -780,17 +930,16 @@ def fan_in_params(graph, seed: int) -> dict:
     return params
 
 
-def wire_shapes(graph, spec) -> list[tuple[int, int]]:
-    """The [R, 128] grids q8 hands the kernel for one batch-1 request: the
-    input, every leaf crossing a cut, and the logits, each padded to a
-    power-of-two count of (8, 128) tiles."""
+def wire_sizes(graph, spec) -> list[int]:
+    """The leaves q8 hands the kernels for one batch-1 request, in
+    values: the input, every leaf crossing a cut, and the logits."""
     sizes = [int(np.prod(graph.input_spec.shape))]
     for cut in spec.cuts:
         for name in graph.crossing_names(cut - 1):
             sizes.append(int(np.prod(graph.input_spec.shape if name == ""
                                      else graph[name].out_spec.shape)))
     sizes.append(int(np.prod(graph.nodes[-1].out_spec.shape)))
-    return [(bq._pow2_tiles(n) * 8, 128) for n in sizes]
+    return sizes
 
 
 def _rel(a, b) -> float:
@@ -879,7 +1028,7 @@ def main_path(device, image: int, classes: int, n_req: int, card: str
     counts = dict(bq.launches)
     emit(phase="main_path_launches", launches=counts,
          plain_calls=dict(bq.plain_calls))
-    return {"counts": counts, "shapes": wire_shapes(graph, spec)}
+    return {"counts": counts, "sizes": wire_sizes(graph, spec)}
 
 
 # -- phase 5: slice C's path, decode serving ---------------------------------------
@@ -1680,8 +1829,11 @@ def main() -> int:
                        for k, n in z["by_shape"].items()]
         gc.collect()
         torch.cuda.empty_cache()
-    shapes = sorted(set(main["shapes"]) | set(SWEEP))
-    times = time_kernels(dev, shapes)
+    times = time_kernels(dev, SWEEP)
+    check(set(main["sizes"]) <= set(RAGGED),
+          f"slice A's leaves {main['sizes']} are not all checked in RAGGED")
+    rtimes = time_ragged(dev, RAGGED_TIMED)
+    wtimes = time_wire(dev, sorted(set(main["sizes"])))
     cfg = STARCODER2_3B
     da_shape = (lm_graph.DECODE_STEP_ROWS, cfg["num_heads"], cfg["kv_heads"],
                 cfg["head_dim"], cfg["cache_len"])
@@ -1689,14 +1841,15 @@ def main() -> int:
     da_other_t = [time_decode_attention(dev, *da_shape, dtype=torch.bfloat16)]
     da_other_t += [time_decode_attention(dev, *sh) for sh in DA_ZOO_TIMED]
     ssd_t = time_ssd_scan(dev, SSD_PATH)
-    # the kernels line reports the largest grid one request puts on the
-    # wire on the main path
-    R, C = max(main["shapes"])
+    # the kernels line reports the largest leaf one batch-1 request puts
+    # on the wire on the main path, and the [4096, 128] grid PRs 11-20
+    # reported (that leaf padded to its power-of-two tile count)
+    n = max(main["sizes"])
     kernels = []
     for name, tpu in (("quantize_blocks", "src/repro/kernels/block_quant.py:59"),
                       ("dequantize_blocks",
                        "src/repro/kernels/block_quant.py:85")):
-        t = times[(R, C, name)]
+        t, g = rtimes[(n, name)], times[(4096, 128, name)]
         check(main["counts"][name] > 0,
               f"{name} was never launched on the main path")
         kernels.append({
@@ -1707,7 +1860,12 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
-            "shape": [R, C], "card": card})
+            "n": n, "tiles": t["tiles"],
+            "grid_4096x128": {k: g[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms")},
+            "wire_call_ms": {k: v for w in wtimes if w["n"] == n
+                             for k, v in w.items() if k.endswith("_ms")},
+            "card": card})
     kernels.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",

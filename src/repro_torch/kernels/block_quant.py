@@ -8,14 +8,20 @@ all-zero tile; see ``ref.INV127``), ``q = clip(round_half_even(x/scale),
 ±127)``; dequantize is ``q·scale``.  The (8, 128) tile is the wire *format* (Q8 blobs and
 ``quant_bytes`` encode it), not a GPU tile.
 
+The kernels also take a *ragged* grid: only its first n values are real
+and the rest is zero padding that they never read (``quantize_ragged`` /
+``dequantize_ragged``, what the q8 wire's entry points call, so a leaf
+crosses PCIe unpadded).
+
 A wrapper given a CPU tensor runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`); given a CUDA tensor it launches the
-kernel or raises.  ``launches`` counts kernel launches only;
+kernel or raises.  ``launches`` counts kernel launches only, by kernel;
 ``plain_calls`` counts the CPU path.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -24,7 +30,7 @@ from repro_torch.device import get_device
 from repro_torch.kernels import ref
 
 TILE_R, TILE_C = ref.TILE_R, ref.TILE_C
-WIRE_C = TILE_C
+TILE = TILE_R * TILE_C
 
 launches = {"quantize_blocks": 0, "dequantize_blocks": 0}
 plain_calls = {"quantize_blocks": 0, "dequantize_blocks": 0}
@@ -46,8 +52,9 @@ def _lib() -> ctypes.CDLL:
         from repro_torch.kernels import _build
         lib = _build.load("block_quant")
         p, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.bq_quantize_f32.argtypes = [p, p, p, ll, ll, ll, p]
+        lib.bq_dequantize_f32.argtypes = [p, p, p, ll, ll, p]
         for fn in (lib.bq_quantize_f32, lib.bq_dequantize_f32):
-            fn.argtypes = [p, p, p, ll, ll, p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -74,9 +81,24 @@ def _check_cuda(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{what}: data pointer must be 16-byte aligned")
 
 
-def _raise_on(err: int, what: str) -> None:
+def _launch_quantize(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                     C: int, n: int, ntiles: int) -> None:
+    err = _lib().bq_quantize_f32(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), C, n, ntiles,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"quantize: CUDA launch failed with error {err}")
+    launches["quantize_blocks"] += 1
+
+
+def _launch_dequantize(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor,
+                       C: int, n: int) -> None:
+    err = _lib().bq_dequantize_f32(
+        q.data_ptr(), s.data_ptr(), out.data_ptr(), C, n,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"dequantize: CUDA launch failed with error {err}")
+    launches["dequantize_blocks"] += 1
 
 
 def quantize_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,11 +112,7 @@ def quantize_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
     s = torch.empty((R // TILE_R, C // TILE_C), dtype=torch.float32,
                     device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().bq_quantize_f32(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                                 R, C, stream)
-    _raise_on(err, "quantize_blocks")
-    launches["quantize_blocks"] += 1
+    _launch_quantize(x, q, s, C, R * C, s.numel())
     return q, s
 
 
@@ -116,68 +134,156 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor,
     if scales.device != q.device:
         raise ValueError("dequantize_blocks: q and scales on different devices")
     out = torch.empty((R, C), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().bq_dequantize_f32(q.data_ptr(), scales.data_ptr(),
-                                   out.data_ptr(), R, C, stream)
-    _raise_on(err, "dequantize_blocks")
-    launches["dequantize_blocks"] += 1
+    _launch_dequantize(q, scales, out, C, R * C)
     return out
 
 
-# -- host-facing wire entry points (the serving runtime's "q8" serializer) ---
-#
-# The kernels want an aligned 2-D [R, C] grid; the wire sees arbitrary
-# activation leaves.  These wrappers flatten, zero-pad to a power-of-two
-# number of (8, 128) tiles, copy to the device, run the kernel and copy the
-# result back: the reference's np -> device -> kernel -> np path.
+# -- the ragged form: the first n values of a zero-padded [8·ntiles, 128] grid
 
 
-def _pow2_tiles(n: int) -> int:
-    """Whole (8, 128) tiles covering n values, rounded up to a power of two
-    (the reference pads so its jit cache sees a bounded set of shapes; the
-    port keeps the padding so the blobs stay byte-identical)."""
-    tiles = -(-n // (TILE_R * WIRE_C))
+def wire_tiles(n: int) -> int:
+    """Whole (8, 128) tiles covering n values, rounded up to a power of two:
+    the count the q8 blob carries a scale for (the reference pads so its
+    jit cache sees a bounded set of shapes; the blob keeps its scales)."""
+    tiles = -(-n // TILE)
     p = 1
     while p < tiles:
         p *= 2
     return p
 
 
+def wire_views(packed: torch.Tensor, n: int, ntiles: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed wire buffer's views: (q int8 [n], scales f32 [ntiles])."""
+    off = ref.wire_layout(n, ntiles)[0]
+    return packed[:n].view(torch.int8), packed[off:].view(torch.float32)
+
+
+def quantize_ragged(x: torch.Tensor, ntiles: int) -> torch.Tensor:
+    """x f32 [n], the first n values of a [8·ntiles, 128] grid whose rest
+    is zero -> the packed buffer uint8 (:func:`ref.wire_layout`): q of the
+    n values, then the scales of all ntiles tiles (:func:`wire_views`).  The
+    kernel reads nothing past n; the bytes between q and the scales are
+    not written."""
+    if x.dim() != 1:
+        raise ValueError(f"quantize_ragged: want a 1-D tensor, got "
+                         f"{tuple(x.shape)}")
+    n = x.numel()
+    if n > ntiles * TILE:
+        raise ValueError(f"quantize_ragged: {n} values over {ntiles} tiles")
+    if x.device.type == "cpu":
+        plain_calls["quantize_blocks"] += 1
+        return ref.quantize_ragged_ref(x, ntiles)
+    _check_cuda(x, "quantize_ragged", torch.float32)
+    packed = torch.empty(ref.wire_layout(n, ntiles)[1], dtype=torch.uint8,
+                         device=x.device)
+    q, s = wire_views(packed, n, ntiles)
+    _launch_quantize(x, q, s, TILE_C, n, ntiles)
+    return packed
+
+
+def dequantize_ragged(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """q int8 [n], the first n values of a [8·ntiles, 128] grid whose rest
+    is zero, and its scales f32 [ntiles] -> float32 [n]."""
+    if q.dim() != 1 or scales.dim() != 1:
+        raise ValueError("dequantize_ragged: want 1-D q and scales")
+    n = q.numel()
+    if n > scales.numel() * TILE:
+        raise ValueError(f"dequantize_ragged: {n} values over "
+                         f"{scales.numel()} tiles")
+    if q.device.type == "cpu" and scales.device.type == "cpu":
+        plain_calls["dequantize_blocks"] += 1
+        return ref.dequantize_ragged_ref(q, scales)
+    _check_cuda(q, "dequantize_ragged", torch.int8)
+    _check_cuda(scales, "dequantize_ragged scales", torch.float32)
+    if scales.device != q.device:
+        raise ValueError("dequantize_ragged: q and scales on different "
+                         "devices")
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    _launch_dequantize(q, scales, out, TILE_C, n)
+    return out
+
+
+# -- host-facing wire entry points (the serving runtime's "q8" serializer) ---
+#
+# The wire sees activation leaves of any size.  A leaf crosses to the card
+# unpadded; the kernel quantizes its n values and writes the scales of the
+# power-of-two tile count the blob carries; q and the scales come back in
+# one buffer.  On a card each calling thread works on a stream of its own
+# (a serving node's codec threads then neither wait behind another
+# replica's compute on the default stream nor hold it up) and synchronises
+# it once per call.
+
+_local = threading.local()
+
+
+def _stream(dev: torch.device) -> torch.cuda.Stream:
+    """The calling thread's own stream on ``dev``, made at its first use."""
+    streams = _local.__dict__.setdefault("streams", {})
+    s = streams.get(dev)
+    if s is None:
+        s = streams[dev] = torch.cuda.Stream(dev)
+    return s
+
+
 def quantize_wire(arr: np.ndarray, device: str | torch.device | None = None
                   ) -> tuple[np.ndarray, np.ndarray]:
-    """Arbitrary-shape array -> (int8 payload [Np], float32 scales [Np/1024]).
+    """Arbitrary-shape array of n values -> (int8 payload [n], float32
+    scales [Np/1024]).
 
-    ``Np`` is ``arr.size`` zero-padded up to a power-of-two count of
-    (8, 128) tiles; the caller records the true element count and may trim
-    the int8 payload to it (zero input quantizes to zero, so the padding is
-    reconstructible on decode).
+    ``Np`` is n rounded up to a power-of-two count of (8, 128) tiles; the
+    scales are those of the zero-padded grid, so the reference's blob
+    (which trims its int8 payload to n) is made of the same bytes.
     """
     a = np.ascontiguousarray(arr, dtype=np.float32).ravel()
     n = a.size
     if n == 0:
         return np.zeros(0, np.int8), np.zeros(0, np.float32)
-    np_full = _pow2_tiles(n) * TILE_R * WIRE_C
-    if np_full > n:
-        a = np.concatenate([a, np.zeros(np_full - n, np.float32)])
-    x = torch.from_numpy(a.reshape(-1, WIRE_C)).to(get_device(device))
-    q, s = quantize_blocks(x)
-    return q.cpu().numpy().ravel(), s.cpu().numpy().ravel()
+    ntiles = wire_tiles(n)
+    dev = get_device(device)
+    if dev.type == "cpu":
+        packed = quantize_ragged(torch.from_numpy(a), ntiles).numpy()
+    else:
+        stream = _stream(dev)
+        with torch.cuda.stream(stream):
+            # host buffers: page-locked, from PyTorch's caching host
+            # allocator, so the copies run asynchronously on the stream
+            x = torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+            out = quantize_ragged(x, ntiles)
+            host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+        stream.synchronize()
+        packed = host.numpy()
+    off = ref.wire_layout(n, ntiles)[0]
+    return packed[:n].view(np.int8), packed[off:].view(np.float32)
 
 
 def dequantize_wire(q: np.ndarray, scales: np.ndarray, n: int,
                     shape: tuple[int, ...], dtype,
                     device: str | torch.device | None = None) -> np.ndarray:
-    """Invert :func:`quantize_wire` back to ``shape``/``dtype``.  Accepts an
-    int8 payload trimmed to ``n`` — the tail tiles quantized from zero
-    padding are re-synthesized as zeros."""
+    """Invert :func:`quantize_wire` back to ``shape``/``dtype``.  Reads the
+    first n values of the int8 payload (a payload trimmed to n, as the
+    blob carries it, or a longer one)."""
     if n == 0:
         return np.zeros(shape, dtype)
-    np_full = scales.size * TILE_R * TILE_C    # one scale per (8, 128) tile
-    qf = np.zeros(np_full, np.int8)
-    qf[:q.size] = q
+    ntiles = scales.size
     dev = get_device(device)
-    q2 = torch.from_numpy(qf.reshape(-1, WIRE_C)).to(dev)
-    s2 = torch.from_numpy(np.array(scales, np.float32)    # owned copy
-                          .reshape(-1, WIRE_C // TILE_C)).to(dev)
-    out = dequantize_blocks(q2, s2).cpu().numpy()
-    return out.ravel()[:n].reshape(shape).astype(dtype, copy=False)
+    if dev.type == "cpu":
+        out = dequantize_ragged(
+            torch.from_numpy(np.array(q[:n], np.int8)),
+            torch.from_numpy(np.array(scales, np.float32))).numpy()
+    else:
+        off, nbytes = ref.wire_layout(n, ntiles)
+        stream = _stream(dev)
+        with torch.cuda.stream(stream):
+            stage = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            st = stage.numpy()
+            st[:n] = np.asarray(q[:n]).view(np.uint8)
+            st[off:] = np.asarray(scales, np.float32).view(np.uint8)
+            packed = stage.to(dev, non_blocking=True)
+            out_d = dequantize_ragged(*wire_views(packed, n, ntiles))
+            host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+            host.copy_(out_d, non_blocking=True)
+        stream.synchronize()
+        out = host.numpy()
+    return out.reshape(shape).astype(dtype, copy=False)

@@ -8,6 +8,10 @@
 //   (-1 = empty slot), pos [B] int32  ->  out [B,1,H,hd] in q's dtype
 //   slot c is valid iff kpos >= 0, pos - kpos >= 0 (and < window if set);
 //   logits = q.k * scale, invalid ones -1e30; softmax; out = sum p v.
+//   Only slots c < C_live hold the cache: the wrapper pads C up to a
+//   multiple of 32 with slots that get no weight at all (logit -inf), so
+//   an all-empty row weighs its C_live slots uniformly, as the plain
+//   version does on the unpadded cache.
 //   Any G = H/kv >= 1 and any hd <= 256, as the zoo's configs need
 //   (gemma3-4b: G 2 at hd 256; granite-34b: G 48 at hd 128).
 //
@@ -137,9 +141,11 @@
 // bit).  Arithmetic is IEEE f32: fmaf, expf, true division, no fast math,
 // no TF32.  Masked logits are -1e30 and the running max starts at -1e30
 // (as in the TPU kernel), so an all-empty cache weighs its slots
-// uniformly and stays finite.
+// uniformly and stays finite; a padding slot's logit is -inf, and with the
+// running max at least -1e30 its weight is exactly 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -159,6 +165,7 @@ constexpr int kTiledHdMultiple = 8;  // tiled form: 16-byte rows in bf16
 constexpr int kTiledRows = 64;     // tiled form: query rows per CTA
 constexpr int kSlicedRows = 8;     // tiled form: up to this, warps slice hd
 constexpr float kNegInf = -1e30f;
+constexpr float kPadLogit = -INFINITY;   // slots at or past C_live
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -248,8 +255,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 reg_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kpos,
                  const int* __restrict__ pos, float* __restrict__ part_acc,
-                 float* __restrict__ part_ml, int C, int kv, int G, int hd,
-                 int split_c, int splits, int window, float scale) {
+                 float* __restrict__ part_ml, int C, int C_live, int kv,
+                 int G, int hd, int split_c, int splits, int window,
+                 float scale) {
   constexpr int kVec = 16 / sizeof(T);       // elements per 16-byte copy
   constexpr int kRP = kRegWarps * kRows;     // query rows, padded
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -345,13 +353,14 @@ reg_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kt = kp_st[lane];
     const int delta = now - kt;
     const bool valid = kt >= 0 && delta >= 0 && (window <= 0 || delta < window);
+    const float masked = c0 + i * kTile + lane < C_live ? kNegInf : kPadLogit;
 
     // online softmax in registers: the warp's lanes are the tile's slots
     float alpha[kRows];
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       const float dot = (part[j][0] + part[j][1]) + (part[j][2] + part[j][3]);
-      const float x = valid ? dot * scale : kNegInf;
+      const float x = valid ? dot * scale : masked;
       float mx = x;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
@@ -416,8 +425,9 @@ reg_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int kRows>
 cudaError_t launch_reg(const T* q, const T* k, const T* v, const int* kpos,
                        const int* pos, float* part_acc, float* part_ml, int B,
-                       int C, int kv, int G, int hd, int split_c, int splits,
-                       int window, float scale, cudaStream_t stream) {
+                       int C, int C_live, int kv, int G, int hd, int split_c,
+                       int splits, int window, float scale,
+                       cudaStream_t stream) {
   const size_t smem = reg_smem_bytes<T>(kRows, hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -426,8 +436,8 @@ cudaError_t launch_reg(const T* q, const T* k, const T* v, const int* kpos,
     if (e != cudaSuccess) return e;
   }
   reg_split_kernel<T, kRows><<<dim3(splits, kv, B), kThreads, smem, stream>>>(
-      q, k, v, kpos, pos, part_acc, part_ml, C, kv, G, hd, split_c, splits,
-      window, scale);
+      q, k, v, kpos, pos, part_acc, part_ml, C, C_live, kv, G, hd, split_c,
+      splits, window, scale);
   return cudaGetLastError();
 }
 
@@ -457,8 +467,9 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 tiled_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ kpos,
                    const int* __restrict__ pos, float* __restrict__ part_acc,
-                   float* __restrict__ part_ml, int C, int kv, int G, int hd,
-                   int rows, int groups, int split_c, int splits, int window,
+                   float* __restrict__ part_ml, int C, int C_live, int kv,
+                   int G, int hd, int rows, int groups, int split_c,
+                   int splits, int window,
                    float scale) {
   constexpr int kVec = 16 / sizeof(T);       // elements per 16-byte copy
   constexpr int kRP = kGroups * kRows;       // query rows, padded
@@ -606,6 +617,7 @@ tiled_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kt = kp_st[lane];
     const int delta = now - kt;
     const bool valid = kt >= 0 && delta >= 0 && (window <= 0 || delta < window);
+    const float masked = c0 + i * kTile + lane < C_live ? kNegInf : kPadLogit;
 #pragma unroll
     for (int j = 0; j < kSoftRows; ++j) {
       const int g = warp + kWarps * j;
@@ -615,7 +627,7 @@ tiled_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int x = 1; x < kSlices; ++x)
           dot += dot_s[(x * kRP + g) * kTile + lane];
-        const float xv = valid ? dot * scale : kNegInf;
+        const float xv = valid ? dot * scale : masked;
         float mx = xv;
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
@@ -736,8 +748,8 @@ tiled_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int kGroups, int kRows>
 cudaError_t launch_tiled(const T* q, const T* k, const T* v, const int* kpos,
                          const int* pos, float* part_acc, float* part_ml,
-                         int B, int C, int kv, int G, int hd, int split_c,
-                         int splits, int window, float scale,
+                         int B, int C, int C_live, int kv, int G, int hd,
+                         int split_c, int splits, int window, float scale,
                          cudaStream_t stream) {
   const int rows = tiled_rows(G);
   const int groups = (G + rows - 1) / rows;
@@ -750,8 +762,8 @@ cudaError_t launch_tiled(const T* q, const T* k, const T* v, const int* kpos,
   }
   tiled_split_kernel<T, kGroups, kRows>
       <<<dim3(splits, kv * groups, B), kWideThreads, smem, stream>>>(
-          q, k, v, kpos, pos, part_acc, part_ml, C, kv, G, hd, rows, groups,
-          split_c, splits, window, scale);
+          q, k, v, kpos, pos, part_acc, part_ml, C, C_live, kv, G, hd, rows,
+          groups, split_c, splits, window, scale);
   return cudaGetLastError();
 }
 
@@ -759,14 +771,15 @@ template <typename T>
 cudaError_t launch_tiled_form(const T* q, const T* k, const T* v,
                               const int* kpos, const int* pos,
                               float* part_acc, float* part_ml, int B, int C,
-                              int kv, int G, int hd, int split_c, int splits,
-                              int window, float scale, cudaStream_t stream) {
+                              int C_live, int kv, int G, int hd, int split_c,
+                              int splits, int window, float scale,
+                              cudaStream_t stream) {
   const int rows = tiled_rows(G);
 #define DA_TILED(GROUPS, R)                                                   \
   case R:                                                                     \
     return launch_tiled<T, GROUPS, R>(q, k, v, kpos, pos, part_acc, part_ml,  \
-                                      B, C, kv, G, hd, split_c, splits,       \
-                                      window, scale, stream);
+                                      B, C, C_live, kv, G, hd, split_c,       \
+                                      splits, window, scale, stream);
   if (rows <= kSlicedRows) {
     switch (rows) {
       DA_TILED(1, 1) DA_TILED(1, 2) DA_TILED(1, 3) DA_TILED(1, 4)
@@ -803,8 +816,8 @@ __global__ void __launch_bounds__(kWideThreads)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kpos,
              const int* __restrict__ pos, float* __restrict__ part_acc,
-             float* __restrict__ part_ml, int C, int kv, int G, int hd,
-             int rows, int groups, int split_c, int splits, int window,
+             float* __restrict__ part_ml, int C, int C_live, int kv, int G,
+             int hd, int rows, int groups, int split_c, int splits, int window,
              float scale) {
   constexpr int kThr = kWideThreads;
   const int s = blockIdx.x, b = blockIdx.z;
@@ -857,7 +870,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kt = kp[t0 + t];
       const int delta = now - kt;
       const bool valid = kt >= 0 && delta >= 0 && (window <= 0 || delta < window);
-      p_s[i] = valid ? dot * scale : kNegInf;
+      p_s[i] = valid ? dot * scale
+             : t0 + t < C_live ? kNegInf : kPadLogit;
     }
     __syncthreads();
     // online softmax: one warp per query row, lane = slot of the tile
@@ -927,8 +941,8 @@ combine_kernel(const float* __restrict__ part_acc,
 template <typename T>
 cudaError_t launch_split(const T* q, const T* k, const T* v, const int* kpos,
                          const int* pos, float* part_acc, float* part_ml,
-                         int B, int C, int kv, int G, int hd, int split_c,
-                         int splits, int window, float scale,
+                         int B, int C, int C_live, int kv, int G, int hd,
+                         int split_c, int splits, int window, float scale,
                          cudaStream_t stream) {
   const int rows = group_rows(G);
   const int groups = (G + rows - 1) / rows;
@@ -941,22 +955,23 @@ cudaError_t launch_split(const T* q, const T* k, const T* v, const int* kpos,
   }
   split_kernel<T><<<dim3(splits, kv * groups, B), kWideThreads, smem,
                     stream>>>(
-      q, k, v, kpos, pos, part_acc, part_ml, C, kv, G, hd, rows, groups,
-      split_c, splits, window, scale);
+      q, k, v, kpos, pos, part_acc, part_ml, C, C_live, kv, G, hd, rows,
+      groups, split_c, splits, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_reg_form(const T* q, const T* k, const T* v,
                             const int* kpos, const int* pos, float* part_acc,
-                            float* part_ml, int B, int C, int kv, int G,
-                            int hd, int split_c, int splits, int window,
+                            float* part_ml, int B, int C, int C_live, int kv,
+                            int G, int hd, int split_c, int splits, int window,
                             float scale, cudaStream_t stream) {
   switch ((G + kRegWarps - 1) / kRegWarps) {
 #define DA_REG_ROWS(R)                                                        \
   case R:                                                                     \
-    return launch_reg<T, R>(q, k, v, kpos, pos, part_acc, part_ml, B, C, kv, \
-                            G, hd, split_c, splits, window, scale, stream);
+    return launch_reg<T, R>(q, k, v, kpos, pos, part_acc, part_ml, B, C,    \
+                            C_live, kv, G, hd, split_c, splits, window,       \
+                            scale, stream);
     DA_REG_ROWS(1) DA_REG_ROWS(2) DA_REG_ROWS(3) DA_REG_ROWS(4)
     DA_REG_ROWS(5) DA_REG_ROWS(6) DA_REG_ROWS(7) DA_REG_ROWS(8)
 #undef DA_REG_ROWS
@@ -967,24 +982,25 @@ static_assert(kRegG == 8 * kRegWarps, "one case per row count");
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
-           float* part_acc, float* part_ml, T* out, int B, int C, int kv,
-           int G, int hd, int split_c, int window, float scale,
-           cudaStream_t stream) {
-  if (B <= 0 || C <= 0 || kv <= 0 || G <= 0 || hd <= 0 || hd > kMaxHd ||
-      C % kTile || split_c <= 0 || split_c % kTile)
+           float* part_acc, float* part_ml, T* out, int B, int C,
+           int C_live, int kv, int G, int hd, int split_c, int window,
+           float scale, cudaStream_t stream) {
+  if (B <= 0 || C <= 0 || C_live <= 0 || C_live > C || kv <= 0 || G <= 0 ||
+      hd <= 0 || hd > kMaxHd || C % kTile || split_c <= 0 || split_c % kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const int splits = (C + split_c - 1) / split_c;
   cudaError_t e =
       register_form(G, hd)
           ? launch_reg_form<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
-                               kv, G, hd, split_c, splits, window, scale,
-                               stream)
+                               C_live, kv, G, hd, split_c, splits, window,
+                               scale, stream)
       : tiled_form(hd)
           ? launch_tiled_form<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
-                                 kv, G, hd, split_c, splits, window, scale,
-                                 stream)
-          : launch_split<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C, kv,
-                            G, hd, split_c, splits, window, scale, stream);
+                                 C_live, kv, G, hd, split_c, splits, window,
+                                 scale, stream)
+          : launch_split<T>(q, k, v, kpos, pos, part_acc, part_ml, B, C,
+                            C_live, kv, G, hd, split_c, splits, window, scale,
+                            stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   combine_kernel<T><<<dim3(G, kv, B), kThreads, 0, stream>>>(
       part_acc, part_ml, out, kv, G, hd, splits);
@@ -997,30 +1013,31 @@ int launch(const T* q, const T* k, const T* v, const int* kpos, const int* pos,
 // of contiguous buffers: q/out [B,1,kv*G,hd], k/v [B,C,kv,hd], kpos [B,C],
 // pos [B], part_acc [B,kv,splits,G,hd] and part_ml [B,kv,splits,G,2] f32
 // scratch with splits = ceil(C / split_c).  C and split_c are multiples of
-// 32, G >= 1, hd <= 256; window <= 0 means no window.  With hd a multiple
-// of 8 (the register and tiled forms) k, v and kpos must be 16-byte
-// aligned.  split_c is the wrapper's (decode_attention.split_c).
+// 32, 0 < C_live <= C (slots from C_live on are padding and get no
+// weight), G >= 1, hd <= 256; window <= 0 means no window.  With hd a
+// multiple of 8 (the register and tiled forms) k, v and kpos must be
+// 16-byte aligned.  split_c is the wrapper's (decode_attention.split_c).
 // Launches both passes on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
 // the kernel does not take; never synchronises.
 extern "C" int da_decode_f32(const float* q, const float* k, const float* v,
                              const int* kpos, const int* pos, float* part_acc,
-                             float* part_ml, float* out, int B, int C, int kv,
-                             int G, int hd, int split_c, int window,
-                             float scale, void* stream) {
-  return launch<float>(q, k, v, kpos, pos, part_acc, part_ml, out, B, C, kv, G,
-                       hd, split_c, window, scale,
+                             float* part_ml, float* out, int B, int C,
+                             int C_live, int kv, int G, int hd, int split_c,
+                             int window, float scale, void* stream) {
+  return launch<float>(q, k, v, kpos, pos, part_acc, part_ml, out, B, C,
+                       C_live, kv, G, hd, split_c, window, scale,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int da_decode_bf16(const void* q, const void* k, const void* v,
                               const int* kpos, const int* pos, float* part_acc,
-                              float* part_ml, void* out, int B, int C, int kv,
-                              int G, int hd, int split_c, int window,
-                              float scale, void* stream) {
+                              float* part_ml, void* out, int B, int C,
+                              int C_live, int kv, int G, int hd, int split_c,
+                              int window, float scale, void* stream) {
   using bf = __nv_bfloat16;
   return launch<bf>(static_cast<const bf*>(q), static_cast<const bf*>(k),
                     static_cast<const bf*>(v), kpos, pos, part_acc, part_ml,
-                    static_cast<bf*>(out), B, C, kv, G, hd, split_c, window,
-                    scale, static_cast<cudaStream_t>(stream));
+                    static_cast<bf*>(out), B, C, C_live, kv, G, hd, split_c,
+                    window, scale, static_cast<cudaStream_t>(stream));
 }

@@ -10,9 +10,11 @@ The kernel splits the cache length into chunks of :func:`split_c` slots,
 one CTA per (chunk, kv head and group of query rows, row), and combines
 the chunks in a fixed order, so a row's result never depends on the batch
 it is stacked in.  It takes any group size G = H/kv, any head_dim up to
-``MAX_HD`` (the wrapper raises above it, on any device) and a C that is a
-multiple of ``BLOCK_C`` (:func:`repro_torch.kernels.ops.decode_attention`
-pads the cache with ``kpos = -1``).  Its first pass has three forms,
+``MAX_HD`` (the wrapper raises above it for CUDA tensors; the plain
+version takes any) and a C that is a multiple of ``BLOCK_C``
+(:func:`repro_torch.kernels.ops.decode_attention` pads a CUDA cache and
+names the slots that are the cache, ``live``: the padding slots get no
+weight, even in an all-empty row).  Its first pass has three forms,
 chosen by (G, hd) alone (:func:`form`): the register and tiled forms
 stream K/V tiles through a ring of 16-byte ``cp.async`` copies, so on a
 card they need k, v and kpos 16-byte aligned (the wrapper raises
@@ -75,7 +77,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("decode_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.da_decode_f32, lib.da_decode_bf16):
-            fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, p]
+            fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -123,28 +125,34 @@ def _check_shapes(q, k, v, kpos, pos, window) -> tuple[int, ...]:
                          f"{tuple(pos.shape)} do not match B={B}, C={C}")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} must be >= 1")
-    if hd > MAX_HD:
-        raise ValueError(f"decode_attention: head_dim {hd} is above the "
-                         f"kernel's limit of {MAX_HD}")
     return B, H, hd, C, kv
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kpos: torch.Tensor, pos: torch.Tensor,
-                     window: int | None, scale: float) -> torch.Tensor:
+                     window: int | None, scale: float,
+                     live: int | None = None) -> torch.Tensor:
     """q [B,1,H,hd]; k/v [B,C,kv,hd]; kpos [B,C] int32; pos [B] int32 ->
-    [B,1,H,hd] in q's dtype."""
+    [B,1,H,hd] in q's dtype.  ``live`` (default C): the cache is slots
+    ``[0, live)``; the slots past it are padding and get no weight."""
     B, H, hd, C, kv = _check_shapes(q, k, v, kpos, pos, window)
+    live = C if live is None else live
+    if not 0 < live <= C:
+        raise ValueError(f"decode_attention: live={live} outside (0, {C}]")
     tensors = (q, k, v, kpos, pos)
     if all(t.device.type == "cpu" for t in tensors):
         plain_calls["decode_attention"] += 1
-        return ref.decode_attention_ref(q, k, v, kpos, pos, window,
+        return ref.decode_attention_ref(q, k[:, :live], v[:, :live],
+                                        kpos[:, :live], pos, window,
                                         scale).to(q.dtype)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("decode_attention: tensors on "
                          f"{[str(t.device) for t in tensors]}; want one "
                          "cuda device, or all on the cpu")
+    if hd > MAX_HD:
+        raise ValueError(f"decode_attention: head_dim {hd} is above the "
+                         f"kernel's limit of {MAX_HD}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention: q/k/v {q.dtype}/{k.dtype}/"
@@ -174,7 +182,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else _lib().da_decode_bf16
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
              pos.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-             out.data_ptr(), B, C, kv, G, hd, split_c(C, G, hd),
+             out.data_ptr(), B, C, live, kv, G, hd, split_c(C, G, hd),
              0 if window is None else int(window), float(scale),
              torch.cuda.current_stream(dev).cuda_stream)
     if err:

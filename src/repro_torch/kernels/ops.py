@@ -54,14 +54,17 @@ def quant_bytes(shape, dtype=torch.bfloat16) -> tuple[int, int]:
 def decode_attention(q, k, v, kpos, pos, window, scale):
     """q [B,1,H,hd]; k/v [B,C,kv,hd]; kpos [B,C]; pos [B] -> [B,1,H,hd].
 
-    Pads C to the kernel's block with zero K/V and ``kpos = -1`` (masked
-    out), as the reference pads to its own block."""
-    pad = (-k.shape[1]) % _da.BLOCK_C
-    if pad:
+    For the kernel (a CUDA cache), pads C to its block with zero K/V and
+    ``kpos = -1`` and names the C slots that are the cache, so the padding
+    gets no weight even in an all-empty row; the plain version (a CPU
+    cache) takes the cache as it is."""
+    C = k.shape[1]
+    pad = (-C) % _da.BLOCK_C
+    if pad and q.device.type != "cpu":
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kpos = F.pad(kpos, (0, pad), value=-1)
-    return _da.decode_attention(q, k, v, kpos, pos, window, scale)
+    return _da.decode_attention(q, k, v, kpos, pos, window, scale, live=C)
 
 
 # -- SSD scan ----------------------------------------------------------------------

@@ -72,6 +72,46 @@ def dequantize_blocks_ref(q: torch.Tensor, scale: torch.Tensor,
     return out.reshape(R, C).to(dtype)
 
 
+# -- the q8 wire's ragged form: the first n values of a zero-padded grid ------
+
+def wire_layout(n: int, ntiles: int) -> tuple[int, int]:
+    """(byte offset of the scales, total bytes) of the packed q8 wire
+    buffer: n int8 values, then the ntiles float32 scales from the next
+    16-byte boundary."""
+    off = -(-n // 16) * 16
+    return off, off + 4 * ntiles
+
+
+def quantize_ragged_ref(x: torch.Tensor, ntiles: int) -> torch.Tensor:
+    """x f32 [n]: the first n values of a [8·ntiles, 128] grid whose rest
+    is zero -> the packed buffer uint8 [wire_layout(n, ntiles)[1]]: q of
+    the n values, then the scales of all ntiles tiles (1.0 for a tile of
+    padding only); the bytes between are zero."""
+    n = x.numel()
+    grid = torch.zeros(ntiles * TILE_R * TILE_C, dtype=torch.float32,
+                       device=x.device)
+    grid[:n] = x.reshape(-1)
+    q, s = quantize_blocks_ref(grid.reshape(-1, TILE_C))
+    off, nbytes = wire_layout(n, ntiles)
+    out = torch.zeros(nbytes, dtype=torch.uint8, device=x.device)
+    out[:n] = q.reshape(-1)[:n].view(torch.uint8)
+    out[off:] = s.reshape(-1).view(torch.uint8)
+    return out
+
+
+def dequantize_ragged_ref(q: torch.Tensor, scales: torch.Tensor
+                          ) -> torch.Tensor:
+    """q int8 [n] (the first n values of a [8·ntiles, 128] grid whose
+    rest is zero) and scales f32 [ntiles] -> float32 [n]."""
+    n = q.numel()
+    grid = torch.zeros(scales.numel() * TILE_R * TILE_C, dtype=torch.int8,
+                       device=q.device)
+    grid[:n] = q.reshape(-1)
+    out = dequantize_blocks_ref(grid.reshape(-1, TILE_C),
+                                scales.reshape(-1, 1))
+    return out.reshape(-1)[:n]
+
+
 # -- single-token decode attention ---------------------------------------------
 
 NEG_INF = -1e30

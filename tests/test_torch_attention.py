@@ -323,6 +323,30 @@ def test_decode_attention_all_empty_cache_is_finite():
     _close(got, want, ATTN_ATOL)
 
 
+@pytest.mark.parametrize("H,kv,hd", [(4, 2, 64), (8, 4, 256), (48, 1, 128)])
+def test_decode_attention_all_empty_row_at_c_100_matches_the_oracle(H, kv,
+                                                                    hd):
+    """A C of 100 slots (not a multiple of the kernel's block) with row 0
+    all empty: the row weighs its 100 slots uniformly, as the JAX oracle
+    does on the same cache, and the kernel's padding slots get no weight.
+    (The Pallas wrapper pads C to its block and weighs its padding too, so
+    only the oracle applies.)"""
+    q, k, v, kpos, pos = _da_inputs(2, H, kv, hd, 100, seed=hd, empty=30)
+    kpos[0] = -1
+    pos[0] = 0
+    tda.reset_counts()
+    got = tops.decode_attention(*[torch.from_numpy(a) for a in
+                                  (q, k, v, kpos, pos)], None, 0.125)
+    assert tda.plain_calls == {"decode_attention": 1}
+    want = jref.decode_attention_ref(*[jnp.asarray(a) for a in
+                                       (q, k, v, kpos, pos)], None, 0.125)
+    _close(got, want, ATTN_ATOL)
+    # the row is the mean of its 100 V rows
+    _close(got[0, 0].reshape(kv, H // kv, hd),
+           np.broadcast_to(v[0].mean(axis=0)[:, None], (kv, H // kv, hd)),
+           ATTN_ATOL)
+
+
 def test_decode_attention_wrapper_checks_its_inputs():
     q, k, v, kpos, pos = (torch.from_numpy(a) for a in
                           _da_inputs(1, 4, 2, 64, 64))
@@ -356,8 +380,9 @@ def test_decode_attention_wrapper_checks_its_inputs():
 
 
 def test_decode_attention_limits_equal_the_kernel_source():
-    """The wrapper's constants are the CUDA source's, and a head_dim above
-    the kernel's limit raises (on the CPU too) with the limit named."""
+    """The wrapper's constants are the CUDA source's; a head_dim above the
+    kernel's limit is the plain version's on the CPU and matches the JAX
+    oracle (the raise for CUDA tensors is the ``cuda`` test below)."""
     import os
     import re
     src = open(os.path.join(os.path.dirname(tda.__file__), "csrc",
@@ -377,10 +402,13 @@ def test_decode_attention_limits_equal_the_kernel_source():
     assert not hasattr(tda, "MAX_G") and "kMaxG" not in src
     ok = [torch.from_numpy(a) for a in _da_inputs(1, 48, 1, 256, 64)]
     assert tops.decode_attention(*ok, None, 0.1).shape == (1, 1, 48, 256)
-    q, k, v, kpos, pos = (torch.from_numpy(a) for a in
-                          _da_inputs(1, 2, 1, 264, 64))
-    with pytest.raises(ValueError, match="limit of 256"):
-        tda.decode_attention(q, k, v, kpos, pos, None, 0.1)
+    arrs = _da_inputs(1, 2, 1, 264, 64)
+    tda.reset_counts()
+    got = tda.decode_attention(*[torch.from_numpy(a) for a in arrs], None,
+                               0.1)
+    assert tda.plain_calls == {"decode_attention": 1}
+    _close(got, jref.decode_attention_ref(*[jnp.asarray(a) for a in arrs],
+                                          None, 0.1), ATTN_ATOL)
 
 
 def test_decode_attention_form_matches_the_kernel_source():
@@ -441,7 +469,11 @@ def test_decode_attention_offset_k_view_on_cpu_runs_plain_version():
 def _tiled_decomposition(q, k, v, kpos, pos, window, scale):
     """The decomposition ``csrc/decode_attention.cu``'s tiled form
     computes, in plain torch (f32), to hold its algebra against the
-    oracles: splits of ``split_c(C, G, hd)`` slots in 32-slot tiles; each
+    oracles: the cache padded to a multiple of 32 slots as
+    ``ops.decode_attention`` pads it for the kernel, the padding slots'
+    logits -inf (no weight, even in an all-empty row: the kernel's
+    ``C_live`` is the true C); splits of ``split_c(C, G, hd)`` slots in
+    32-slot tiles; each
     tile's logits as partial dots over hd slices (16-byte chunk c in slice
     c % S: S = 8 at most SLICED_ROWS rows per CTA, else 1) added in slice
     order; an online softmax per tile; P.V in slot groups (4 at S = 8,
@@ -449,9 +481,13 @@ def _tiled_decomposition(q, k, v, kpos, pos, window, scale):
     (m, l, acc); then the combine over the splits in order."""
     f32 = torch.float32
     B, _, H, hd = q.shape
-    C, kv = k.shape[1], k.shape[2]
+    live, kv = k.shape[1], k.shape[2]
     G = H // kv
     assert tda.form(G, hd) == "tiled"
+    pad = (-live) % tda.BLOCK_C
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    kpos = torch.nn.functional.pad(kpos, (0, pad), value=-1)
+    C = live + pad
     sliced = min(G, tda.TILED_ROWS) <= tda.SLICED_ROWS
     S, SG = (8, 4) if sliced else (1, 1)
     vec = 16 // k.element_size()
@@ -478,6 +514,8 @@ def _tiled_decomposition(q, k, v, kpos, pos, window, scale):
                 valid &= delta < window
             x = torch.where(valid[:, None, None, :], dot * scale,
                             torch.tensor(-1e30))
+            x = torch.where(torch.arange(t0, t0 + 32) < live, x,
+                            torch.tensor(-torch.inf))
             m_cur = torch.maximum(m, x.amax(-1))
             p = torch.exp(x - m_cur[..., None])
             alpha = torch.exp(m - m_cur)
@@ -504,9 +542,10 @@ def _tiled_decomposition(q, k, v, kpos, pos, window, scale):
 # gemma3-4b's heads (G 2 at hd 256: warps slice hd, 4 slot groups) over
 # splits of 128 slots with a last split of two tiles and over 7 splits of
 # 160 with a last of four, and granite-34b's (G 48: one row group per warp)
-# over splits of 64 with a last split of one
+# over splits of 64 with a last split of one; then gemma's heads at C 100,
+# padded to 128 with 28 slots of no weight
 TILED_GEOMETRY = [(2, 8, 4, 256, 320), (1, 8, 4, 256, 1088),
-                  (2, 48, 1, 128, 160)]
+                  (2, 48, 1, 128, 160), (2, 8, 4, 256, 100)]
 
 
 @pytest.mark.parametrize("B,H,kv,hd,C", TILED_GEOMETRY)
@@ -615,6 +654,33 @@ def test_cuda_decode_attention_register_form_batch_invariant_windowed(
     one = tda.decode_attention(q[3:4], k[3:4], v[3:4], kpos[3:4], pos[3:4],
                                128, 0.1)
     assert torch.equal(full[3:4], one)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_raises_above_the_kernels_head_dim(
+        cuda_device):
+    q, k, v, kpos, pos = (torch.from_numpy(a).to(cuda_device)
+                          for a in _da_inputs(1, 2, 1, 264, 64))
+    tda.reset_counts()
+    with pytest.raises(ValueError, match="limit of 256"):
+        tda.decode_attention(q, k, v, kpos, pos, None, 0.1)
+    assert tda.launches == {"decode_attention": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,kv,hd", [(24, 2, 128), (8, 4, 256), (8, 2, 100)])
+@pytest.mark.parametrize("C", [100, 650])
+def test_cuda_decode_attention_all_empty_row_padded_c(cuda_device, H, kv, hd,
+                                                      C):
+    """All-empty row 0 beside a filled row 1, C padded for the kernel: the
+    padding slots get no weight (the plain version runs unpadded)."""
+    q, k, v, kpos, pos = _da_inputs(2, H, kv, hd, C, seed=C, empty=30)
+    kpos[0] = -1
+    pos[0] = 0
+    arrs = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v, kpos, pos)]
+    out = tops.decode_attention(*arrs, None, 0.1)
+    want = tref.decode_attention_ref(*arrs, None, 0.1)
+    assert (out - want).abs().max().item() <= ATTN_ATOL
 
 
 @pytest.mark.cuda

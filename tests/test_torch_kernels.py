@@ -25,6 +25,10 @@ torch.set_num_threads(1)
 GRID_SHAPES = [(8, 128), (16, 128), (64, 256), (24, 384), (2048, 128)]
 WIRE_SHAPES = [(1,), (5, 7), (1, 16, 16, 64), (2, 9, 9, 33), (1, 1000),
                (1, 8, 8, 2048)]
+# leaf sizes for the ragged (unpadded) wire path: a part of a tile, one
+# off a tile either way, slice A's batch-1 leaves (ResNet50's input and
+# stem_pool / s0b0_c2 / s2b0_add, and s1b0_add) and one past the last
+RAGGED_SIZES = [1, 3, 1023, 1025, 150_528, 200_704, 401_408, 401_409]
 
 
 def _data(shape, seed):
@@ -213,8 +217,11 @@ def test_quantize_wire_byte_identical_to_jax(shape):
     x = _data(shape, seed=sum(shape))
     qj, sj = jbq.quantize_wire(x, interpret=True)
     qt, st = tbq.quantize_wire(x, device="cpu")
-    assert qt.tobytes() == qj.tobytes() and st.tobytes() == sj.tobytes()
+    # the port's payload is the reference's up to n; past it the reference
+    # holds the zero padding's q, which its blob trims
     n = x.size
+    assert qt.tobytes() == qj[:n].tobytes() and not qj[n:].any()
+    assert st.tobytes() == sj.tobytes()
     back_t = tbq.dequantize_wire(qt[:n], st, n, shape, np.float32,
                                  device="cpu")
     back_j = jbq.dequantize_wire(qj[:n], sj, n, shape, np.float32,
@@ -236,6 +243,60 @@ def test_q8_codec_blob_byte_identical_and_cross_decodes(shape):
     assert from_j.tobytes() == from_t.tobytes()
     err = np.abs(from_j - x).max()
     assert err <= port.error_bound(np.abs(x).max())
+
+
+@pytest.mark.parametrize("n", RAGGED_SIZES)
+def test_ragged_plain_byte_identical_to_jax_wire(n):
+    """The ragged plain versions (the first n values of the zero-padded
+    grid, the packed output) against the reference's ``quantize_wire`` /
+    ``dequantize_wire`` (the Pallas kernels in interpret mode)."""
+    x = _data((n,), seed=n)
+    qj, sj = jbq.quantize_wire(x, interpret=True)
+    ntiles = tbq.wire_tiles(n)
+    assert sj.size == ntiles
+    packed = tref.quantize_ragged_ref(torch.from_numpy(x), ntiles)
+    off, nbytes = tref.wire_layout(n, ntiles)
+    assert packed.numel() == nbytes and off % 16 == 0 and off - n < 16
+    q, s = tbq.wire_views(packed, n, ntiles)
+    assert q.numpy().tobytes() == qj[:n].tobytes() and not qj[n:].any()
+    assert s.numpy().tobytes() == sj.tobytes()
+    back = tref.dequantize_ragged_ref(q, s)
+    back_j = jbq.dequantize_wire(qj[:n], sj, n, (n,), np.float32,
+                                 interpret=True)
+    assert back.numpy().tobytes() == back_j.tobytes()
+    # the wire entry points on the CPU run these plain versions
+    tbq.reset_counts()
+    qt, st = tbq.quantize_wire(x, device="cpu")
+    assert qt.tobytes() == qj[:n].tobytes() and st.tobytes() == sj.tobytes()
+    assert tbq.dequantize_wire(qt, st, n, (n,), np.float32,
+                               device="cpu").tobytes() == back_j.tobytes()
+    assert tbq.plain_calls == {"quantize_blocks": 1, "dequantize_blocks": 1}
+    assert tbq.launches == {"quantize_blocks": 0, "dequantize_blocks": 0}
+
+
+@pytest.mark.parametrize("n", RAGGED_SIZES)
+def test_q8_codec_ragged_wire_blob_byte_identical_and_cross_decodes(n):
+    x = _data((n,), seed=3 * n + 1)
+    blob_j = jcodecs.Q8Codec().encode(x)
+    port = tcodecs.Q8Codec(device="cpu")
+    blob_t = port.encode(x)
+    assert blob_t == blob_j
+    from_j = port.decode(blob_j)
+    from_t = jcodecs.Q8Codec().decode(blob_t)
+    assert from_j.shape == x.shape and from_j.dtype == x.dtype
+    assert from_j.tobytes() == from_t.tobytes()
+
+
+def test_ragged_wrappers_check_their_inputs():
+    with pytest.raises(ValueError):
+        tbq.quantize_ragged(torch.zeros(2, 8), 1)
+    with pytest.raises(ValueError):
+        tbq.quantize_ragged(torch.zeros(1025), 1)
+    with pytest.raises(ValueError):
+        tbq.dequantize_ragged(torch.zeros(1025, dtype=torch.int8),
+                              torch.ones(1))
+    assert [tbq.wire_tiles(n) for n in (1, 1024, 1025, 150_528, 401_409)] \
+        == [1, 1, 2, 256, 512]
 
 
 def test_q8_codec_edge_tiles_byte_identical():
@@ -293,6 +354,32 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape):
     qr, sr = tref.quantize_blocks_ref(x.to(cuda_device))
     assert torch.equal(q, qr) and torch.equal(s, sr)
     assert torch.equal(out, tref.dequantize_blocks_ref(qr, sr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RAGGED_SIZES)
+def test_cuda_ragged_kernel_matches_plain_version(cuda_device, n):
+    x = torch.from_numpy(_data((n,), seed=n)).to(cuda_device)
+    ntiles = tbq.wire_tiles(n)
+    tbq.reset_counts()
+    q, s = tbq.wire_views(tbq.quantize_ragged(x, ntiles), n, ntiles)
+    out = tbq.dequantize_ragged(q, s)
+    torch.cuda.synchronize()
+    assert tbq.launches == {"quantize_blocks": 1, "dequantize_blocks": 1}
+    qr, sr = tbq.wire_views(tref.quantize_ragged_ref(x, ntiles), n, ntiles)
+    assert torch.equal(q, qr)
+    assert torch.equal(s.view(torch.int32), sr.view(torch.int32))
+    assert torch.equal(out.view(torch.int32),
+                       tref.dequantize_ragged_ref(qr, sr).view(torch.int32))
+    # the wire entry points give the plain wire path's bytes
+    a = x.cpu().numpy()
+    qw, sw = tbq.quantize_wire(a, device=cuda_device)
+    qc, sc = tbq.quantize_wire(a, device="cpu")
+    assert qw.tobytes() == qc.tobytes() and sw.tobytes() == sc.tobytes()
+    assert tbq.dequantize_wire(qw, sw, n, (n,), np.float32,
+                               device=cuda_device).tobytes() == \
+        tbq.dequantize_wire(qc, sc, n, (n,), np.float32,
+                            device="cpu").tobytes()
 
 
 @pytest.mark.cuda
