@@ -49,6 +49,15 @@ Phases, each printing JSON records on their own lines:
    window); outputs are held against single-device ``apply`` on the card
    (TF32 off) and on the CPU, and the block-quant launch counters must
    rise during it;
+4b. the serving controller over the same chain
+   (``InferenceEngine(controller=ControllerConfig(...))``): raw, with
+   stage 0 slowed by a 20 ms sleep per wave, one explicit
+   ``Controller.step()`` after 16 requests must migrate layers off stage 0
+   (epoch 1, the swap's ``precompile()`` run on the card) and 8 requests
+   after the swap must equal single-device apply within 1e-4; then q8
+   with the controller thread stepping every 0.5 s over two windows of 8
+   requests: no action an error, outputs within the q8 bar, the
+   block-quant kernels launched and their plain versions not run;
 5. slice C's path, decode serving at StarCoder2-3B's widths (30 layers,
    d_model 3072, 24 query / 2 kv heads of 128, d_ff 12288, vocab 49152,
    a 4096-slot KV cache, f32, seeded fan-in weights): 8 concurrent
@@ -87,7 +96,8 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
 ``--cpu-rehearsal`` runs phases 4 to 7 on the CPU at small sizes (no
-kernel build; slice E with its head geometry kept), to rehearse the
+kernel build; slice E with its head geometry kept; phase 4b with
+ResNet50's 1000 classes), to rehearse the
 control flow without a card; it never prints a result and exits 3.
 """
 from __future__ import annotations
@@ -121,11 +131,13 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.configs import base as cfg_base  # noqa: E402
 from repro_torch.configs import gemma3_4b, granite_34b, mamba2_2_7b  # noqa: E402
 from repro_torch.models import cnn, lm_graph, transformer  # noqa: E402
-from repro_torch.runtime import (DispatcherCodecs, InferenceEngine,  # noqa: E402
+from repro_torch.core.metrics import H100  # noqa: E402
+from repro_torch.runtime import (ControllerConfig,  # noqa: E402
+                                 DispatcherCodecs, InferenceEngine,
                                  TopologySpec, WireCodec)
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_OPS_PER_S = 67e12            # H100 SXM, float32 outside the tensor cores
+HBM_BYTES_PER_S = H100.hbm_bw    # H100 SXM data sheet
+F32_OPS_PER_S = H100.peak_flops  # H100 SXM, float32 outside the tensor cores
 SWEEP = [(8, 128), (2048, 128), (4096, 128), (32768, 128), (1024, 512)]
 # the q8 wire's ragged leaves (n values of a zero-padded power-of-two tile
 # grid): parts of a tile, one off a tile either way, slice A's batch-1
@@ -1031,6 +1043,216 @@ def main_path(device, image: int, classes: int, n_req: int, card: str
     return {"counts": counts, "sizes": wire_sizes(graph, spec)}
 
 
+# -- phase 4b: the serving controller over slice A's chain ---------------------------
+
+CTL_SLOW_S = 0.02       # injected per-wave sleep of stage 0 (computes ~1.2 ms)
+
+
+def _jsonable(obj):
+    """A controller record as plain JSON (numpy scalars, tuples)."""
+    return json.loads(json.dumps(obj, default=lambda o: (
+        o.item() if hasattr(o, "item") else str(o))))
+
+
+def _serve_window(eng, xs, single, tol, what) -> tuple[float, float]:
+    """Submit ``xs`` at once, wait for every result, hold each against
+    single-device apply; (requests/s, worst relative error)."""
+    t0 = time.perf_counter()
+    futs = [eng.submit(x, client_id=i % 2) for i, x in enumerate(xs)]
+    outs = [f.result(timeout=300) for f in futs]
+    rate = len(xs) / (time.perf_counter() - t0)
+    check(all(np.isfinite(o).all() and o.shape == single[0].shape
+              for o in outs), f"{what}: outputs not finite/shaped")
+    worst = max(_rel(o, r) for o, r in zip(outs, single))
+    emit(phase="check", what=what, rel=worst, tol=tol)
+    check(worst <= tol, f"{what}: rel {worst} > {tol}")
+    return rate, worst
+
+
+def _stage_rows(rep) -> list[dict]:
+    """Per replica: requests and per-request stage seconds this window."""
+    return [{k: n[k] for k in ("stage", "replica", "requests",
+                               "deserialize_s", "compute_s", "serialize_s",
+                               "batch_mean")} for n in rep.per_node]
+
+
+def controller_phase(device, image: int, classes: int, card: str) -> dict:
+    """Slice A's chain under ``InferenceEngine(controller=...)``.
+
+    Raw: stage 0 sleeps ``CTL_SLOW_S`` per wave; after 16 requests one
+    explicit ``Controller.step()`` must have calibrated stage 0's layers
+    at no less than the sleep's share of a request and migrate layers off
+    it (epoch 1), and 8 requests after the swap must equal single-device
+    apply within ``RAW_TOL_REL`` (the swap's ``precompile()`` ran on the
+    card from the step).  A control engine takes the same step with
+    nothing slowed first; its decision is recorded beside the other.  q8: the controller thread runs every 0.5 s while two windows
+    of 8 requests are served; no action may be an error, outputs stay
+    within ``Q8_REL`` and the block-quant kernels (not their plain
+    versions) carry the wire."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = cnn.resnet50(batch=1, image=image, num_classes=classes)
+    params = fan_in_params(graph, seed=0)
+    rng = np.random.default_rng(2)
+    xs = [rng.standard_normal((1, image, image, 3)).astype(np.float32)
+          for _ in range(40)]
+    prep = graph.prepare(params, device)
+    single = [graph.apply(prep, torch.from_numpy(x).to(device)).cpu().numpy()
+              for x in xs]
+    del prep
+    spec = TopologySpec.chain(graph, 4, strategy="balanced_latency",
+                              replicas=[1, 2, 1, 1])
+    raw = WireCodec("raw", "none")
+    bq.reset_counts()
+    cfg = ControllerConfig(interval_s=30.0, ewma_alpha=1.0, hysteresis=0.05,
+                           min_requests=8, cooldown_s=0.0,
+                           precompile_after_swap=True)
+
+    # 0. the control: the same chain, traffic and step with nothing slowed;
+    # whether it repartitions too is recorded, not checked
+    eng = InferenceEngine(graph, spec, DispatcherCodecs(data=raw,
+                                                        weights=raw),
+                          max_batch=4, controller=cfg, device=device)
+    try:
+        eng.configure(params)
+        eng.precompile()
+        eng.start()
+        for w in range(2):
+            _serve_window(eng, xs[8 * w:8 * w + 8], single[8 * w:8 * w + 8],
+                          RAW_TOL_REL, f"controller raw control: window {w}")
+        control_stages = _stage_rows(eng.report())
+        control = eng.controller.step()
+    finally:
+        eng.shutdown()
+    emit(phase="controller_control_step", kind=control.kind,
+         detail=_jsonable(control.detail), stages_before=control_stages,
+         layer_s=eng.controller.calibrator.layer_s.tolist())
+
+    # 1. deterministic migration off a slowed stage 0 (raw wire)
+    eng = InferenceEngine(graph, spec, DispatcherCodecs(data=raw,
+                                                        weights=raw),
+                          max_batch=4, controller=cfg, device=device)
+    try:
+        eng.configure(params)
+        eng.precompile()
+        pre_s = []                       # the swap's precompile() calls
+        for group in eng.dispatcher.stages:
+            for node in group.replicas:
+                def timed(fn=node.precompile):
+                    t0 = time.perf_counter()
+                    fn()
+                    pre_s.append(time.perf_counter() - t0)
+                node.precompile = timed
+        slow = []
+        for node in eng.dispatcher.stages[0].replicas:
+            def slowed(b, fn=node._apply):
+                time.sleep(CTL_SLOW_S)
+                return fn(b)
+            node._apply = slowed
+            slow.append(slowed)
+        eng.start()                      # the thread idles (30 s period)
+        old = [list(r) for r in eng.dispatcher.partition.ranges()]
+        # 16 requests in two windows of 8: the first pays the engine's
+        # first traffic, the second is the slowed chain warm
+        rate_first, _ = _serve_window(eng, xs[:8], single[:8], RAW_TOL_REL,
+                                      "controller raw: first window")
+        rate_before, _ = _serve_window(eng, xs[8:16], single[8:16],
+                                       RAW_TOL_REL, "controller raw: before")
+        stages = _stage_rows(eng.report())
+        t0 = time.perf_counter()
+        action = eng.controller.step()
+        step_s = time.perf_counter() - t0
+        d = action.detail
+        cal = eng.controller.calibrator
+        # the mechanism: the calibration holds stage 0's measured compute,
+        # so its layers' seconds cover the sleep's share of each request
+        lo, hi = old[0]
+        stage0_s = float(cal.layer_s[lo:hi].sum())
+        sleep_share_s = CTL_SLOW_S / max(r["batch_mean"] for r in stages
+                                         if r["stage"] == 0 and r["requests"])
+        emit(phase="controller_step", kind=action.kind,
+             detail=_jsonable(d), stages_before=stages,
+             encode_s_per_byte=cal.encode_s_per_byte,
+             decode_s_per_byte=cal.decode_s_per_byte,
+             stage0_layer_s=stage0_s, sleep_share_s=sleep_share_s,
+             layer_s=cal.layer_s.tolist())
+        check(stage0_s >= sleep_share_s,
+              f"calibrated stage 0 {stage0_s} s a request is below the "
+              f"sleep's share {sleep_share_s} s")
+        check(action.kind == "repartition",
+              f"controller step gave {action.kind!r}, not a repartition")
+        check(d["acknowledged"], "the migration's fence was not acknowledged")
+        new = [list(r) for r in eng.dispatcher.partition.ranges()]
+        check(new[0][1] < old[0][1], f"stage 0 did not shrink: {old} -> {new}")
+        check(eng.dispatcher.epoch == 1 and eng.controller.migrations == 1,
+              f"epoch {eng.dispatcher.epoch}, migrations "
+              f"{eng.controller.migrations}")
+        check(not any(n._apply in slow
+                      for n in eng.dispatcher.stages[0].replicas),
+              "stage 0 kept its slowed apply after the swap")
+        eng.reset_window()
+        rate_after, worst = _serve_window(eng, xs[16:24], single[16:24],
+                                          RAW_TOL_REL,
+                                          "controller raw: after the swap")
+        stages_after = _stage_rows(eng.report())
+    finally:
+        eng.shutdown()
+    emit(phase="controller_migration", card=card, ranges_before=old,
+         ranges_after=new, cuts_after=list(d["cuts"]),
+         predicted_gain=float(d["predicted_gain"]),
+         moved_layers=d["moved_layers"], shipped_bytes=d["shipped_bytes"],
+         requests_per_s_first=rate_first,
+         requests_per_s_before=rate_before, requests_per_s_after=rate_after,
+         migrate_s=d["migrate_s"], precompile_s=sum(pre_s),
+         precompile_calls=len(pre_s), step_s=step_s, rel_after=worst,
+         stages_after=stages_after, control_kind=control.kind,
+         control_cuts=(list(control.detail["cuts"])
+                       if control.kind == "repartition" else None))
+
+    # 2. the live loop on the q8 wire: the thread decides, nothing injected
+    q8 = WireCodec("q8", "none")
+    cfg = ControllerConfig(interval_s=0.5, min_requests=8, cooldown_s=2.0)
+    eng = InferenceEngine(graph, spec, DispatcherCodecs(data=q8, weights=raw),
+                          max_batch=4, controller=cfg, device=device)
+    rates = []
+    try:
+        eng.configure(params)
+        eng.precompile()
+        warm = dict(bq.launches)
+        eng.start()
+        for w in range(2):
+            seen = len(eng.controller.actions)
+            rate, _ = _serve_window(eng, xs[24 + 8 * w:32 + 8 * w],
+                                    single[24 + 8 * w:32 + 8 * w], Q8_REL,
+                                    f"controller q8: window {w}")
+            rates.append(rate)
+            deadline = time.perf_counter() + 30
+            while (len(eng.controller.actions) == seen
+                   and time.perf_counter() < deadline):
+                time.sleep(0.05)         # one control period after it
+            check(len(eng.controller.actions) > seen,
+                  "the controller thread took no step in 30 s")
+    finally:
+        eng.shutdown()
+    acts = [{"kind": a.kind, "detail": _jsonable(a.detail)}
+            for a in eng.controller.actions]
+    emit(phase="controller_live", card=card, requests_per_s=rates,
+         epoch=eng.dispatcher.epoch, migrations=eng.controller.migrations,
+         actions=acts)
+    check(all(a["kind"] != "error" for a in acts),
+          f"the controller recorded an error: {acts}")
+    counts, plain = dict(bq.launches), dict(bq.plain_calls)
+    emit(phase="controller_launches", launches=counts, plain_calls=plain,
+         launches_after_precompile=warm,
+         phase_s=time.perf_counter() - t_phase)
+    if device.type == "cuda":
+        check(all(counts[k] > warm[k] for k in counts),
+              f"block quant did not launch while the q8 loop served: "
+              f"{warm} -> {counts}")
+    return {"counts": counts, "plain": plain}
+
+
 # -- phase 5: slice C's path, decode serving ---------------------------------------
 
 def lm_params(graph, seed: int, device) -> dict:
@@ -1759,6 +1981,11 @@ def main() -> int:
     if args.cpu_rehearsal:
         torch.set_num_threads(min(4, os.cpu_count() or 1))
         main_path(torch.device("cpu"), 64, 10, 4, "cpu rehearsal")
+        # 1000 classes as on the card: the tail's logits set the per-byte
+        # encode rate (alpha 1, ROADMAP queue 3 item 6), and 10 classes'
+        # 40 bytes price every cut's encode above the 20 ms sleep, so the
+        # DP grows stage 0 there
+        controller_phase(torch.device("cpu"), 64, 1000, "cpu rehearsal")
         small = dict(vocab=256, d_model=64, n_layers=4, num_heads=4,
                      kv_heads=2, head_dim=16, d_ff=128, cache_len=128)
         decode_phase(torch.device("cpu"), small, (16, 48), 8,
@@ -1791,6 +2018,12 @@ def main() -> int:
     check_da_batch_invariance(dev)
     ssd_errs = compare_ssd_scan(dev)
     main = main_path(dev, 224, 1000, 8, card)
+    ctl = controller_phase(dev, 224, 1000, card)
+    for name in ("quantize_blocks", "dequantize_blocks"):
+        check(ctl["counts"][name] > 0,
+              f"{name} was never launched on the controller's q8 chain")
+        check(ctl["plain"][name] == 0,
+              f"{name} ran its plain version on the controller's q8 chain")
     t_dec = time.perf_counter()
     dec = decode_phase(dev, STARCODER2_3B, PROMPT_LEN, NEW_TOKENS, card)
     emit(phase="decode_phase_done", seconds=time.perf_counter() - t_dec)
@@ -1855,7 +2088,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/block_quant.cu",
-            "replaces": tpu, "launches": main["counts"][name],
+            "replaces": tpu,
+            "launches": main["counts"][name],
+            "launches_by_path": {"main_path": main["counts"][name],
+                                 "controller": ctl["counts"][name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -1,13 +1,17 @@
-"""Hardware constants and energy accounting.
+"""Hardware constants and energy accounting (the twin of
+``repro.core.metrics``).
 
-Two hardware profiles:
+Three hardware profiles:
 
 * EDGE  — the paper's setting: edge-class CPU nodes on emulated Ethernet
           (CORE).  Energy model is the paper's: serialization time x TDP
           plus 10 pJ/bit network energy.
-* TPU_V5E — the adaptation target used for the roofline analysis
-          (197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link ICI; per the
-          assignment's constants).
+* H100  — the port's target, one NVIDIA H100 SXM: data-sheet peaks (f32
+          outside the tensor cores, since the port computes in f32 with
+          TF32 off), its 700 W power limit and PCIe Gen5 x16 to the host.
+          The default of :func:`roofline`.
+* TPU_V5E — the reference package's roofline target, kept for parity
+          with it; none of its figures is the port's.
 """
 from __future__ import annotations
 
@@ -45,6 +49,17 @@ EDGE = HardwareProfile(
     energy_per_bit_j=10e-12,       # paper: 10 pJ/bit Ethernet
 )
 
+H100 = HardwareProfile(
+    name="h100-sxm",
+    peak_flops=67e12,              # f32, non-tensor-core (data sheet)
+    hbm_bw=3.35e12,                # HBM3 (data sheet)
+    link_bw=64e9,                  # PCIe Gen5 x16, one direction (data sheet)
+    tdp_w=700.0,                   # the power limit nvidia-smi reports
+    energy_per_bit_j=10e-12,       # assumption: the paper's 10 pJ/bit; no
+                                   # published per-bit figure for the link
+)
+
+# the reference's roofline target, kept for parity with repro.core.metrics
 TPU_V5E = HardwareProfile(
     name="tpu-v5e",
     peak_flops=197e12,             # bf16
@@ -108,7 +123,7 @@ class RooflineTerms:
 
 
 def roofline(hlo_flops: float, hlo_bytes: float, collective_bytes: float,
-             chips: int, hw: HardwareProfile = TPU_V5E) -> RooflineTerms:
+             chips: int, hw: HardwareProfile = H100) -> RooflineTerms:
     return RooflineTerms(
         compute_s=hlo_flops / (chips * hw.peak_flops),
         memory_s=hlo_bytes / (chips * hw.hbm_bw),

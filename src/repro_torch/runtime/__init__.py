@@ -1,3 +1,8 @@
+from repro_torch.runtime.controller import (Controller,  # noqa: F401
+                                            ControllerConfig,
+                                            CostCalibrator,
+                                            decide_repartition, decide_scale,
+                                            suggest_knobs)
 from repro_torch.runtime.dispatcher import (AdmissionFull,  # noqa: F401
                                             DeadlineExceeded, Dispatcher,
                                             DispatcherCodecs, NodeError,

@@ -36,9 +36,13 @@ counter can legitimately exceed the wall clock — stage threads count
 runnable-but-descheduled time — and the serving controller needs to SEE
 that oversubscription honestly to avoid tuning against a saturated lie.
 
-The reference's serving-time feedback loop (``controller=``) is not
-ported yet; ``reconfigure()`` and ``scale()`` on the dispatcher are, so
-the live fences it would actuate work here too.  Compute and codec
+With ``controller=ControllerConfig(...)`` the engine runs the serving-time
+feedback loop (:mod:`repro_torch.runtime.controller`): online cost
+calibration from this report's raw telemetry, periodic re-planning of the
+partition on measured costs, hot repartitioning behind an epoch fence,
+adaptive ``max_batch`` / ``coalesce_s`` per stage — and, when enabled, the
+replica dimension: scale recommendations (or executions) for bottleneck
+stages the calibrated DP cannot fix by moving cuts.  Compute and codec
 kernels run on the engine's ``device``.
 """
 from __future__ import annotations
@@ -57,6 +61,7 @@ from repro_torch.core.metrics import (EDGE, HardwareProfile, LatencySummary,
                                       compute_energy_j, idle_energy_j,
                                       network_energy_j)
 from repro_torch.core.partitioner import LinkModel
+from repro_torch.runtime.controller import Controller, ControllerConfig
 from repro_torch.runtime.dispatcher import (Dispatcher, DispatcherCodecs,
                                             RetryPolicy)
 from repro_torch.runtime.session import generate_tokens
@@ -97,7 +102,7 @@ class InferenceEngine:
                  client_quota: int | None = None,
                  shape_buckets: str = "exact",
                  max_batch_cap: int | None = None,
-                 controller: Any = None,
+                 controller: ControllerConfig | None = None,
                  replica_factory=None,
                  retry_policy: RetryPolicy | None = None,
                  device: str | torch.device | None = None):
@@ -109,11 +114,7 @@ class InferenceEngine:
 
         ``device`` is where every replica computes and every codec kernel
         runs: CUDA by default (raising if it is unavailable), the CPU only
-        when asked for.  ``controller`` is not ported yet and must be None."""
-        if controller is not None:
-            raise NotImplementedError(
-                "the serving controller (runtime/controller.py) is not "
-                "ported to repro_torch yet")
+        when asked for."""
         if isinstance(topology, int):
             topology = TopologySpec.chain(graph, topology)
         self.graph = graph
@@ -131,9 +132,10 @@ class InferenceEngine:
                                      retry_policy=retry_policy,
                                      device=device)
         self.device = self.dispatcher.device
-        # the serving-time feedback loop is not ported: always None here,
-        # kept so start()/shutdown() read as in the reference
-        self.controller = None
+        # the serving-time feedback loop (opt-in): calibrate costs online,
+        # repartition / scale behind an epoch fence, adapt batching knobs
+        self.controller = (Controller(self.dispatcher, controller)
+                           if controller is not None else None)
         self._window_t0 = time.perf_counter()
 
     @property

@@ -3,6 +3,7 @@
 Shown in a subprocess: the root conftest already imports ``repro`` (and
 with it ``jax``) into this process.
 """
+import glob
 import os
 import pkgutil
 import subprocess
@@ -39,12 +40,15 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.runtime.session", "repro_torch.runtime.node",
                  "repro_torch.runtime.topology", "repro_torch.runtime.router",
                  "repro_torch.runtime.dispatcher",
-                 "repro_torch.runtime.engine"):
+                 "repro_torch.runtime.engine",
+                 "repro_torch.runtime.controller",
+                 "repro_torch.core.emulator"):
         assert want in names, want
 
 
-def test_every_port_module_imports_without_jax_or_repro():
-    mods = _port_modules()
+def _import_blocked(mods: list[str], pythonpath: str) -> None:
+    """Import ``mods`` in a fresh interpreter with ``jax`` and ``repro``
+    blocked, and check that neither was pulled in."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -57,8 +61,24 @@ def test_every_port_module_imports_without_jax_or_repro():
         "                 or m.startswith('repro.')) and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
         "print('imported', len(" + repr(mods) + "))\n")
-    env = dict(os.environ, PYTHONPATH=_SRC)
+    env = dict(os.environ, PYTHONPATH=pythonpath)
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=_ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert f"imported {len(mods)}" in res.stdout
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    _import_blocked(_port_modules(), _SRC)
+
+
+def test_port_benchmarks_import_without_jax_or_repro():
+    """Every ``benchmarks/torch_*.py`` imports with ``jax`` and ``repro``
+    blocked (its runner included), and pulls neither in."""
+    mods = sorted("benchmarks." + os.path.basename(p)[:-3] for p in glob.glob(
+        os.path.join(_ROOT, "benchmarks", "torch_*.py")))
+    assert {"benchmarks.torch_common", "benchmarks.torch_run",
+            "benchmarks.torch_fig2_throughput", "benchmarks.torch_fig3_energy",
+            "benchmarks.torch_table1_codecs",
+            "benchmarks.torch_table2_codec_throughput"} <= set(mods)
+    _import_blocked(mods, os.pathsep.join([_SRC, _ROOT]))
