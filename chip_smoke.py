@@ -58,6 +58,18 @@ Phases, each printing JSON records on their own lines:
    with the controller thread stepping every 0.5 s over two windows of 8
    requests: no action an error, outputs within the q8 bar, the
    block-quant kernels launched and their plain versions not run;
+4c. process-per-replica serving over the same chain
+   (``supervised_engine`` with ``repro_torch.models.cnn:resnet50`` as the
+   workers' graph factory): 5 worker processes, each with its own CUDA
+   context on the card, its own q8 codec and the parent's TF32 choice;
+   two windows of 8 requests raw and two through q8 against
+   single-device apply, every worker on ``cuda:0``, under q8 every
+   worker's block-quant kernels launched and their plain versions never;
+   then a kill drill with a ``RetryPolicy``: 4 closed-loop clients for 32
+   requests, one stage-1 worker SIGKILLed mid-load, no client-visible
+   failure, the death and a respawn in the supervisor's events, stage 1
+   back to 2 replicas and its newcomer serving a window; every surviving
+   worker says bye and exits 0 and no child process is left;
 5. slice C's path, decode serving at StarCoder2-3B's widths (30 layers,
    d_model 3072, 24 query / 2 kv heads of 128, d_ff 12288, vocab 49152,
    a 4096-slot KV cache, f32, seeded fan-in weights): 8 concurrent
@@ -96,8 +108,8 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
 ``--cpu-rehearsal`` runs phases 4 to 7 on the CPU at small sizes (no
-kernel build; slice E with its head geometry kept; phase 4b with
-ResNet50's 1000 classes), to rehearse the
+kernel build; slice E with its head geometry kept; phases 4b and 4c with
+ResNet50's 1000 classes, 4c's workers on the CPU), to rehearse the
 control flow without a card; it never prints a result and exits 3.
 """
 from __future__ import annotations
@@ -1253,6 +1265,315 @@ def controller_phase(device, image: int, classes: int, card: str) -> dict:
     return {"counts": counts, "plain": plain}
 
 
+# -- phase 4c: slice A's chain, every replica a worker process ----------------------
+
+PROCS_REQ = 32          # closed-loop requests of the kill drill
+PROCS_CLIENTS = 4
+
+
+def _live_children() -> set[int]:
+    """Pids of this process's live (non-zombie) children, from /proc."""
+    me, pids = os.getpid(), set()
+    for ent in os.listdir("/proc"):
+        if not ent.isdigit():
+            continue
+        try:
+            with open(f"/proc/{ent}/stat") as f:
+                fields = f.read().rsplit(")", 1)[-1].split()
+        except OSError:
+            continue                # raced a pid that just exited
+        if int(fields[1]) == me and fields[0] != "Z":
+            pids.add(int(ent))
+    return pids
+
+
+def _bare_context_mib(device) -> float:
+    """Device memory one more process takes for a CUDA context and
+    nothing else (torch imported, one 4-byte tensor on the card): the
+    card's used memory while it lives, less before it started."""
+    free0 = torch.cuda.mem_get_info(device)[0]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, torch; "
+         "t = torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+         "print('up', flush=True); sys.stdin.read()"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        check(proc.stdout.readline().strip() == "up",
+              "the bare-context process did not start")
+        used = (free0 - torch.cuda.mem_get_info(device)[0]) / 2**20
+    finally:
+        proc.stdin.close()
+        proc.wait(timeout=60)
+    return used
+
+
+def _procs_window(eng, xs, single, tol, what) -> dict:
+    """One window on a process-backed engine: requests/s, p50 / p99 of
+    admission to result, worst error against single-device apply."""
+    eng.reset_window()
+    rate, worst = _serve_window(eng, xs, single, tol, what)
+    rep = eng.report()
+    return {"requests_per_s": rate, "p50_latency_s": rep.p50_latency_s,
+            "p99_latency_s": rep.p99_latency_s, "rel": worst}
+
+
+def _closed_loop(eng, xs, single, tol, n, clients, on_ramp) -> dict:
+    """``clients`` threads each keep one request in flight until ``n``
+    requests are done; ``on_ramp`` runs once a quarter of them is.  Every
+    output is held against single-device apply; any failure is kept."""
+    lock = threading.Lock()
+    state = {"next": 0, "done": 0, "worst": 0.0, "errors": []}
+    ramp = threading.Event()
+
+    def client(c):
+        while True:
+            with lock:
+                i = state["next"]
+                if i >= n:
+                    return
+                state["next"] += 1
+            try:
+                out = eng.submit(xs[i % len(xs)],
+                                 client_id=f"c{c}").result(timeout=300)
+            except Exception as e:  # noqa: BLE001 - every failure is recorded and fails the phase
+                with lock:
+                    state["errors"].append(f"{type(e).__name__}: {e}")
+                continue
+            rel = _rel(out, single[i % len(xs)])
+            with lock:
+                state["worst"] = max(state["worst"], rel)
+                state["done"] += 1
+                if state["done"] >= n // 4:
+                    ramp.set()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    eng.reset_window()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    check(ramp.wait(300), "the closed-loop load never ramped")
+    rec = on_ramp()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads),
+          "a closed-loop client hung")
+    wall = time.perf_counter() - t0
+    rep = eng.report()
+    rec.update(requests=state["done"], errors=state["errors"],
+               rel=state["worst"], wall_s=wall,
+               requests_per_s=state["done"] / wall,
+               p50_latency_s=rep.p50_latency_s,
+               p99_latency_s=rep.p99_latency_s)
+    check(not state["errors"],
+          f"client-visible failures in the kill drill: {state['errors']}")
+    check(state["done"] == n, f"{state['done']} of {n} requests done")
+    emit(phase="check", what="procs kill drill vs single-device",
+         rel=state["worst"], tol=tol)
+    check(state["worst"] <= tol, f"procs kill drill rel {state['worst']}")
+    return rec
+
+
+def _check_workers(sup, device, what, kernels: bool) -> list[dict]:
+    """Every live worker reports the engine's device; with ``kernels``
+    (q8 on a card) each launched both block-quant kernels and never ran
+    their plain versions."""
+    rows = []
+    for h in sup._handles:
+        if h.dead:
+            continue
+        rows.append({"stage": h.index, "replica": h.replica,
+                     "pid": h.proc.pid, "device": h.worker_device,
+                     "launches": h.launches, "plain_calls": h.plain_calls,
+                     "ready_s": h.ready_at - h.spawned_at})
+        check(h.worker_device == str(device),
+              f"{what}: worker {h.index}.{h.replica} reports "
+              f"{h.worker_device}, not {device}")
+        if kernels:
+            check(all(h.launches.get(k, 0) > 0 for k in bq.launches)
+                  and not any(h.plain_calls.values()),
+                  f"{what}: worker {h.index}.{h.replica} launches "
+                  f"{h.launches}, plain calls {h.plain_calls}")
+    return rows
+
+
+def _drain_clean(sup, what, killed=()) -> list:
+    """After ``eng.shutdown(); sup.close()``: every worker but the
+    ``killed`` pids said bye and exited 0, and no child process is
+    left."""
+    codes = [(h.index, h.replica, h.proc.returncode, h.bye)
+             for h in sup._handles]
+    for h in sup._handles:
+        if h.proc.pid not in killed:
+            check(h.bye and h.proc.returncode == 0,
+                  f"{what}: worker {h.index}.{h.replica} exited "
+                  f"rc={h.proc.returncode}, bye={h.bye}")
+    left = _live_children()
+    check(not left, f"{what}: child processes left: {sorted(left)}")
+    return codes
+
+
+def procs_phase(device, image: int, classes: int, card: str) -> dict:
+    """Slice A's chain with every replica a supervised worker process.
+
+    Built through ``supervised_engine`` with the graph factory
+    ``repro_torch.models.cnn:resnet50``: 5 workers for the 4-stage
+    ``balanced_latency`` chain ``[1, 2, 1, 1]``, each with its own CUDA
+    context on ``device``, the parent's TF32 choice (off) and its own q8
+    codec.  Two windows of 8 requests raw, then two of 8 through q8, each
+    against single-device apply; every worker must report ``device``, and
+    under q8 each must have launched both block-quant kernels and never
+    their plain versions.  Then the kill drill on the q8 engine (a
+    ``RetryPolicy`` installed): 4 closed-loop clients for 32 requests,
+    one stage-1 replica SIGKILLed once 8 are done; no client may see a
+    failure, every output stays within ``Q8_REL``, the supervisor records
+    the death and a respawn and stage 1 is back to 2 replicas, whose
+    newcomer then serves a window.  Every surviving worker must say bye
+    and exit 0, and no child process may be left."""
+    from repro_torch.runtime import (RetryPolicy, SupervisorConfig,
+                                     supervised_engine)
+    from tools.torch_chaos import Chaos
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = cnn.resnet50(batch=1, image=image, num_classes=classes)
+    params = fan_in_params(graph, seed=0)
+    rng = np.random.default_rng(3)
+    xs = [rng.standard_normal((1, image, image, 3)).astype(np.float32)
+          for _ in range(16)]
+    prep = graph.prepare(params, device)
+    single = [graph.apply(prep, torch.from_numpy(x).to(device)).cpu().numpy()
+              for x in xs]
+    del prep
+    spec = TopologySpec.chain(graph, 4, strategy="balanced_latency",
+                              replicas=[1, 2, 1, 1])
+    raw, q8 = WireCodec("raw", "none"), WireCodec("q8", "none")
+    cfg = SupervisorConfig(
+        "repro_torch.models.cnn:resnet50",
+        graph_args={"batch": 1, "image": image, "num_classes": classes},
+        heartbeat_s=0.2, spawn_timeout_s=300.0, backoff_initial_s=0.2,
+        backoff_max_s=1.0)
+    kernels = device.type == "cuda"
+    out: dict = {"card": card, "cuts": list(spec.cuts)}
+
+    # 1. raw: two windows of 8
+    if kernels:
+        out["bare_context_mib"] = _bare_context_mib(device)
+    children0 = _live_children()
+    free0 = torch.cuda.mem_get_info(device)[0] if kernels else None
+    t0 = time.perf_counter()
+    eng, sup = supervised_engine(graph, params, spec, cfg,
+                                 codecs=DispatcherCodecs(data=raw,
+                                                         weights=raw),
+                                 max_batch=4, device=device)
+    try:
+        eng.precompile()
+        eng.start()
+        out["raw_start_s"] = time.perf_counter() - t0
+        pids = {h.proc.pid for h in sup._handles}
+        check(len(pids) == 5 and pids <= _live_children() - children0,
+              f"want 5 worker processes, have {len(pids)}")
+        if kernels:     # the card's used memory, less before the spawn
+            out["workers_mib"] = \
+                (free0 - torch.cuda.mem_get_info(device)[0]) / 2**20
+        out["raw"] = [_procs_window(eng, xs[8 * w:8 * w + 8],
+                                    single[8 * w:8 * w + 8], RAW_TOL_REL,
+                                    f"procs raw: window {w}")
+                      for w in range(2)]
+        out["raw_workers"] = _check_workers(sup, device, "procs raw", False)
+    finally:
+        eng.shutdown()
+        sup.close()
+    out["raw_exits"] = _drain_clean(sup, "procs raw")
+    out["raw_events"] = [e for e in sup.events if e["kind"] != "spawn"]
+
+    # 2. q8: two windows of 8, then the kill drill, then a healed window
+    bq.reset_counts()
+    policy = RetryPolicy(max_attempts=5, backoff_s=0.05, retry_budget=64.0,
+                         refill_per_s=32.0)
+    t0 = time.perf_counter()
+    eng, sup = supervised_engine(graph, params, spec, cfg,
+                                 codecs=DispatcherCodecs(data=q8,
+                                                         weights=raw),
+                                 max_batch=4, device=device,
+                                 retry_policy=policy)
+    chaos = Chaos(sup)
+    try:
+        eng.precompile()
+        eng.start()
+        out["q8_start_s"] = time.perf_counter() - t0
+        warm = {h.proc.pid: dict(h.launches) for h in sup._handles}
+        out["q8"] = [_procs_window(eng, xs[8 * w:8 * w + 8],
+                                   single[8 * w:8 * w + 8], Q8_REL,
+                                   f"procs q8: window {w}")
+                     for w in range(2)]
+        time.sleep(3 * cfg.heartbeat_s)      # the windows' counts arrive
+        out["q8_workers"] = _check_workers(sup, device, "procs q8", kernels)
+        if kernels:
+            for h in sup._handles:
+                check(any(h.launches[k] > warm[h.proc.pid].get(k, 0)
+                          for k in h.launches),
+                      f"worker {h.index}.{h.replica}: block quant did not "
+                      "launch while the windows served")
+
+        def kill() -> dict:
+            victim = chaos.pick(stage=1)
+            pid = chaos.kill(victim)
+            t_kill = time.monotonic()
+            chaos.wait_death(stage=1, timeout=60)
+            return {"killed": [victim.index, victim.replica, pid],
+                    "t_kill": t_kill}
+
+        drill = _closed_loop(eng, xs, single, Q8_REL, PROCS_REQ,
+                             PROCS_CLIENTS, kill)
+        chaos.wait_respawn(stage=1, timeout=300)
+        check(chaos.wait_stage_full(eng.dispatcher, 1, timeout=300) == 2,
+              "stage 1 is not back to 2 replicas")
+        new = [h for h in sup._handles if h.index == 1 and not h.dead
+               and h.spawned_at > drill["t_kill"]]
+        check(len(new) == 1, f"want one respawned stage-1 worker: {new}")
+        h = new[0]
+        drill["respawn_ready_s"] = h.ready_at - h.spawned_at
+        drill["kill_to_ready_s"] = h.ready_at - drill.pop("t_kill")
+        drill["replay"] = dataclasses.asdict(eng.dispatcher.replay_stats)
+        drill["events"] = [e for e in sup.events
+                           if e["kind"] not in ("spawn",)]
+        out["drill"] = drill
+        out["healed"] = _procs_window(eng, xs[:8], single[:8], Q8_REL,
+                                      "procs q8: healed window")
+        time.sleep(3 * cfg.heartbeat_s)
+        out["healed_workers"] = _check_workers(sup, device,
+                                               "procs q8 healed", kernels)
+        out["respawned_served"] = h.snapshot()["n"]
+        check(out["respawned_served"] > 0,
+              "the respawned worker served nothing in the healed window")
+    finally:
+        eng.shutdown()
+        sup.close()
+    out["q8_exits"] = _drain_clean(sup, "procs q8",
+                                   killed=[out["drill"]["killed"][2]])
+    out["q8_events"] = [e for e in sup.events if e["kind"] != "spawn"]
+    # the phase's block-quant launches: the parent's (the dispatcher's
+    # input encode, the collector's output decode) and every worker's last
+    # report (the killed one's up to its last heartbeat)
+    counts = {k: bq.launches[k] + sum(h.launches.get(k, 0)
+                                       for h in sup._handles)
+              for k in bq.launches}
+    plain = {k: bq.plain_calls[k] + sum(h.plain_calls.get(k, 0)
+                                        for h in sup._handles)
+             for k in bq.plain_calls}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(phase="procs", **_jsonable(out))
+    emit(phase="procs_launches", launches=counts, plain_calls=plain,
+         phase_s=out["phase_s"])
+    raw_deaths = [e for e in out["raw_events"] if e["kind"] == "death"]
+    check(not raw_deaths, f"procs raw: deaths {raw_deaths}")
+    kinds = [e["kind"] for e in out["q8_events"]]
+    check(kinds.count("death") == 1 and kinds.count("respawn") >= 1,
+          f"procs q8: want the one death and a respawn: {out['q8_events']}")
+    return {"counts": counts, "plain": plain}
+
+
 # -- phase 5: slice C's path, decode serving ---------------------------------------
 
 def lm_params(graph, seed: int, device) -> dict:
@@ -1986,6 +2307,7 @@ def main() -> int:
         # 40 bytes price every cut's encode above the 20 ms sleep, so the
         # DP grows stage 0 there
         controller_phase(torch.device("cpu"), 64, 1000, "cpu rehearsal")
+        procs_phase(torch.device("cpu"), 64, 1000, "cpu rehearsal")
         small = dict(vocab=256, d_model=64, n_layers=4, num_heads=4,
                      kv_heads=2, head_dim=16, d_ff=128, cache_len=128)
         decode_phase(torch.device("cpu"), small, (16, 48), 8,
@@ -2024,6 +2346,12 @@ def main() -> int:
               f"{name} was never launched on the controller's q8 chain")
         check(ctl["plain"][name] == 0,
               f"{name} ran its plain version on the controller's q8 chain")
+    procs = procs_phase(dev, 224, 1000, card)
+    for name in ("quantize_blocks", "dequantize_blocks"):
+        check(procs["counts"][name] > 0,
+              f"{name} was never launched on the process-backed q8 chain")
+        check(procs["plain"][name] == 0,
+              f"{name} ran its plain version on the process-backed chain")
     t_dec = time.perf_counter()
     dec = decode_phase(dev, STARCODER2_3B, PROMPT_LEN, NEW_TOKENS, card)
     emit(phase="decode_phase_done", seconds=time.perf_counter() - t_dec)
@@ -2091,7 +2419,8 @@ def main() -> int:
             "replaces": tpu,
             "launches": main["counts"][name],
             "launches_by_path": {"main_path": main["counts"][name],
-                                 "controller": ctl["counts"][name]},
+                                 "controller": ctl["counts"][name],
+                                 "procs": procs["counts"][name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

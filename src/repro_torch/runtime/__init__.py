@@ -9,6 +9,9 @@ from repro_torch.runtime.dispatcher import (AdmissionFull,  # noqa: F401
                                             ReplayStats, RetryPolicy)
 from repro_torch.runtime.engine import (EngineReport,  # noqa: F401
                                         InferenceEngine)
+from repro_torch.runtime.supervisor import (Supervisor,  # noqa: F401
+                                            SupervisorConfig,
+                                            supervised_engine)
 from repro_torch.runtime.topology import StageSpec, TopologySpec  # noqa: F401
 from repro_torch.runtime.transport import (Channel,  # noqa: F401
                                            ChannelClosed, InprocTransport,

@@ -451,8 +451,13 @@ class Dispatcher:
         if self._started:
             return
         self._started = True
-        for node in self.nodes:
-            node.start()
+        # every replica built, not ``self.nodes``: that prunes a replica
+        # that died (a worker process that exited) before start, and a
+        # stage left with no member would start its router empty, never
+        # forward _STOP, and hang shutdown; starting it raises instead
+        for group in self.stages:
+            for node in list(group.replicas):
+                node.start()
         for group in self.stages:
             group.start()
         self._pump_thread = threading.Thread(target=self._pump, daemon=True)
@@ -1268,6 +1273,29 @@ class Dispatcher:
         for node in self.nodes:
             node.reset_stats()
 
+    # how long a router (or the collector) whose upstream is joined may
+    # take to reach its stop count before shutdown tops it up
+    _STOP_TOPUP_S = 0.5
+
+    def _join_stopped(self, thread: threading.Thread | None,
+                      channel: Channel) -> None:
+        """Join a stage's router (or the collector) once every replica
+        upstream of it has been joined.  A replica severed at its join (a
+        wedged worker process) never forwarded the _STOP it was sent, and
+        the thread would wait for that copy forever; so while it lives,
+        append _STOP copies to its input.  Everything the upstream ever
+        flushed is already queued ahead of them, so a copy cannot overtake
+        anything, and copies it does not need are never read."""
+        if thread is None:
+            return
+        thread.join(self._STOP_TOPUP_S)
+        while thread.is_alive():
+            try:
+                channel.send(_STOP)
+            except (ChannelClosed, OSError):
+                pass            # input link dead: the thread exits on its own
+            thread.join(self._STOP_TOPUP_S)
+
     def shutdown(self, drain: bool = True,
                  timeout: float | None = None) -> None:
         """Stop accepting requests; by default let in-flight ones finish.
@@ -1295,11 +1323,11 @@ class Dispatcher:
         if self._pump_thread:
             self._pump_thread.join()
         for group in self.stages:
-            group.join()
+            self._join_stopped(group.thread, group.input)
             for node in list(group.replicas):   # incl. flushing retirees
                 node.join()
         if self._collect_thread:
-            self._collect_thread.join()
+            self._join_stopped(self._collect_thread, self.result_channel)
         # the reaper outlives the drain (it must be able to fail pending
         # deadline/replay events during it); stop it after the collector
         with self._lock:

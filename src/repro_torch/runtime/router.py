@@ -188,6 +188,11 @@ class StageGroup:
         self._thread = threading.Thread(target=self._route_loop, daemon=True)
         self._thread.start()
 
+    @property
+    def thread(self) -> threading.Thread | None:
+        """The router thread (None before ``start()``)."""
+        return self._thread
+
     def join(self) -> None:
         if self._thread is not None:
             self._thread.join()

@@ -42,6 +42,8 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.runtime.dispatcher",
                  "repro_torch.runtime.engine",
                  "repro_torch.runtime.controller",
+                 "repro_torch.runtime.supervisor",
+                 "repro_torch.runtime.worker",
                  "repro_torch.core.emulator"):
         assert want in names, want
 
@@ -82,3 +84,9 @@ def test_port_benchmarks_import_without_jax_or_repro():
             "benchmarks.torch_table1_codecs",
             "benchmarks.torch_table2_codec_throughput"} <= set(mods)
     _import_blocked(mods, os.pathsep.join([_SRC, _ROOT]))
+
+
+def test_port_chaos_harness_imports_without_jax_or_repro():
+    """``tools/torch_chaos.py``, the port's fault injector, imports with
+    ``jax`` and ``repro`` blocked and pulls neither in."""
+    _import_blocked(["tools.torch_chaos"], os.pathsep.join([_SRC, _ROOT]))
