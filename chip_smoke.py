@@ -102,13 +102,30 @@ Phases, each printing JSON records on their own lines:
    every token must equal the plain ``forward``'s argmax wherever its
    top-1/top-2 margin clears the stated bar; decode attention must
    launch once per attention layer and step and its plain version must
-   not run.
+   not run;
+8. slice L's path, DEFER's stage pipeline: phi3-mini-3.8b at its
+   published widths and depth (32 layers, d_model 3072, 32 heads of 96,
+   d_ff 8192, vocab 32064, f32, seeded fan-in weights drawn on the card)
+   cut into 4 stages of 8 layers on the one card.  ``build_pipeline_lm``
+   prefills 32 requests of 64 tokens in 8 microbatches (the launcher's
+   defaults), each run cold then warm: raw within 1e-4 of
+   ``transformer.forward``; with the relay quantized by the block-quant
+   kernels on the card within the reference's 0.15 of it and bit for bit
+   the same chain with the plain codec, the kernels launched M * (S - 1)
+   times a call and their plain versions never.  ``build_pipeline_decoder``
+   decodes 4 microbatches of 2 for 16 greedy steps: every token equal to
+   the single-device greedy ``decode_step`` loop up to a step whose
+   top-1/top-2 margin is under 1e-2, and compressed, the kernels' tokens
+   equal the plain codec's; block quant is also held against its plain
+   version at the relay's grids ([256, 3072] and [8, 3072]) and timed
+   there.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phases 4 to 7 on the CPU at small sizes (no
-kernel build; slice E with its head geometry kept; phases 4b and 4c with
+``--cpu-rehearsal`` runs phases 4 to 8 on the CPU at small sizes (no
+kernel build; slice E with its head geometry kept, slice L at phi3's smoke
+config; phases 4b and 4c with
 ResNet50's 1000 classes, 4c's workers on the CPU), to rehearse the
 control flow without a card; it never prints a result and exits 3.
 """
@@ -141,9 +158,12 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.configs import base as cfg_base  # noqa: E402
-from repro_torch.configs import gemma3_4b, granite_34b, mamba2_2_7b  # noqa: E402
+from repro_torch.configs import (gemma3_4b, granite_34b,  # noqa: E402
+                                 mamba2_2_7b, phi3_mini_3_8b)
 from repro_torch.models import cnn, lm_graph, transformer  # noqa: E402
 from repro_torch.core.metrics import H100  # noqa: E402
+from repro_torch.launch import serve as pipe_serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.runtime import (ControllerConfig,  # noqa: E402
                                  DispatcherCodecs, InferenceEngine,
                                  TopologySpec, WireCodec)
@@ -253,6 +273,26 @@ ZOO_RUNS = [(gemma3_4b.CONFIG, 1536, None),
 # its top-1/top-2 margin is at least ZOO_MARGIN (both logits may move).
 ZOO_BATCH, ZOO_STEPS, ZOO_MAX_LEN = 4, 32, 2048
 ZOO_STEP_ATOL, ZOO_MARGIN = 1e-3, 1e-2
+# Slice L, DEFER's stage pipeline (core/pipeline*.py, launch/serve.py):
+# phi3-mini-3.8b (arXiv:2404.14219; src/repro_torch/configs/phi3_mini_3_8b.py)
+# at its published widths and depth, 4 stages of 8 layers on the one card.
+# Prefill at the launcher's defaults: 32 requests of 64 tokens in 8
+# microbatches of 4.  The raw chain runs the forward's layers on
+# microbatches (other GEMM shapes): within 1e-4 of the forward's logits,
+# relative.  Compressed: the reference's 0.15 bar against the forward,
+# and bit for bit the chain whose codec is the plain version.  Decode:
+# 4 microbatches of 2 from seeded tokens at position 0, 16 greedy steps,
+# 128-slot caches; a token that differs from the single-device greedy
+# loop's must have a top-1/top-2 margin under PIPE_MARGIN there (slices D
+# and E's bar), and the streams are compared up to that step.
+PIPE_STAGES, PIPE_REQUESTS, PIPE_SEQ, PIPE_M = 4, 32, 64, 8
+PIPE_DEC_M, PIPE_DEC_MB, PIPE_DEC_MAX_LEN, PIPE_DEC_STEPS = 4, 2, 128, 16
+PIPE_RAW_REL, PIPE_MARGIN = 1e-4, 1e-2
+PIPE_PROFILE_STEPS = 4      # the profiled decode run's steps
+# the relay's block-quant grids at those sizes: a prefill microbatch's
+# [mb*seq, d] = [256, 3072] (no padding) and a decode step's [2, 3072]
+# padded to 8 rows
+PIPE_GRIDS = [(256, 3072), (8, 3072)]
 # subnormal tiles [a, -a/2, 0.3a, 0...]: (a, q of the first 3, scale) as
 # the reference computes them (XLA reads subnormals as zero and flushes a
 # subnormal scale; a TPU has none)
@@ -401,7 +441,7 @@ def compare_kernels(dev) -> dict:
     """Kernel == plain version, bit for bit, on the sweep and the edge
     tiles.  Returns the largest absolute difference seen per kernel."""
     err = {"quantize_blocks": 0.0, "dequantize_blocks": 0.0}
-    cases = [(s, _data(s, seed=i)) for i, s in enumerate(SWEEP)]
+    cases = [(s, _data(s, seed=i)) for i, s in enumerate(SWEEP + PIPE_GRIDS)]
     cases.append(((40, 128), _edge_tiles()))
     for shape, x in cases:
         xd = x.to(dev)
@@ -2293,6 +2333,225 @@ def zoo_decode_phase(dev, cfg, batch: int, prompt: int, steps: int,
             "want": attn_layers * steps}
 
 
+# -- phase 8: slice L's path, DEFER's stage pipeline -----------------------------
+
+def _pipe_run(fn, dev) -> tuple:
+    """``fn()`` once, timed to its end on the device."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _greedy_margins(params, cfg, start, max_len, steps, dev):
+    """The single-device greedy ``decode_step`` loop per microbatch (the
+    reference's ``tests/test_pipeline_decode.py:18``): tokens [M, steps,
+    mb] and each step's top-1/top-2 logit margin [M, steps, mb]."""
+    toks, margins = [], []
+    for m in range(start.shape[0]):
+        caches = transformer.init_caches(cfg, start.shape[1], max_len,
+                                         device=dev)
+        tok, tm, mm = start[m], [], []
+        for p in range(steps):
+            pos = torch.full((start.shape[1],), p, dtype=torch.int32,
+                             device=dev)
+            logits, caches = transformer.decode_step(params, cfg, tok, pos,
+                                                     caches)
+            top2 = logits[:, 0].topk(2, dim=-1).values
+            tok = logits.argmax(-1).to(torch.int32)
+            tm.append(tok[:, 0])
+            mm.append(top2[:, 0] - top2[:, 1])
+        del caches
+        toks.append(torch.stack(tm))
+        margins.append(torch.stack(mm))
+    return torch.stack(toks), torch.stack(margins)
+
+
+def _match_greedy(toks, greedy, margins) -> dict:
+    """Pipeline tokens against the greedy loop's, per microbatch and row,
+    up to the first step where they differ (the streams part there): that
+    step's greedy margin must be under PIPE_MARGIN."""
+    exact, worst = 0, 0.0
+    diverged = []
+    t, g, mg = toks.cpu(), greedy.cpu(), margins.cpu()
+    for m in range(t.shape[0]):
+        for b in range(t.shape[2]):
+            same = (t[m, :, b] == g[m, :, b]).tolist()
+            n = same.index(False) if False in same else len(same)
+            exact += n
+            if n < len(same):
+                worst = max(worst, float(mg[m, n, b]))
+                diverged.append({"microbatch": m, "row": b, "step": n,
+                                 "margin": float(mg[m, n, b])})
+    return {"exact_tokens": exact, "tokens": int(t.numel()),
+            "diverged": diverged, "worst_margin_at_divergence": worst}
+
+
+def pipeline_phase(dev, cfg, card: str) -> dict:
+    """Slice L's path: ``build_pipeline_lm`` (prefill) and
+    ``build_pipeline_decoder`` over PIPE_STAGES stages on ``dev``, seeded
+    fan-in weights.  Prefill raw against ``transformer.forward``, and
+    compressed through the block-quant kernels against the forward and
+    against the same chain with the plain codec, each run cold then warm;
+    decode raw against the single-device greedy loop, compressed through
+    the kernels against the plain codec.  Returns block quant's launch and
+    plain-call counts over the phase and the launches the schedules imply
+    (M * (S - 1) a prefill call, M * steps * (S - 1) a decode call)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    S, M, B, seq = PIPE_STAGES, PIPE_M, PIPE_REQUESTS, PIPE_SEQ
+    t0 = time.perf_counter()
+    params = dense_params(cfg, seed=0, dev=dev)
+    _sync(dev)
+    weights_s = time.perf_counter() - t0
+    n_params = transformer.param_count(params)
+    check(n_params == cfg.param_count(), f"{n_params} parameters, config "
+                                         f"says {cfg.param_count()}")
+    n_units = cfg.num_layers // cfg.unit_layers
+    mesh = make_host_mesh(S, dev)
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, seq))
+                              .astype(np.int32)).to(dev)
+    start = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PIPE_DEC_M, PIPE_DEC_MB, 1)).astype(np.int32)).to(dev)
+    start_pos = torch.zeros((PIPE_DEC_M, PIPE_DEC_MB), dtype=torch.int32,
+                            device=dev)
+    emit(phase="pipeline_setup", config=cfg.name, source=cfg.source,
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, parameters=n_params, weight_bytes=4 * n_params,
+         weights_s=weights_s, stages=S, units_per_stage=-(-n_units // S),
+         devices=[str(d) for d in mesh.devices], requests=B, seq=seq,
+         microbatches=M, decode_microbatches=PIPE_DEC_M,
+         decode_mb=PIPE_DEC_MB, decode_steps=PIPE_DEC_STEPS,
+         max_len=PIPE_DEC_MAX_LEN, tf32="off (cudnn and matmul)")
+    bq.reset_counts()
+    res: dict = {}
+    with torch.inference_mode():
+        fwd_s = []
+        for _ in range(2):          # the first includes cuBLAS warm-up
+            ref_logits, s_ = _pipe_run(
+                lambda: transformer.forward(params, cfg, tokens)[0], dev)
+            fwd_s.append(s_)
+        outs, logs = {}, {}
+        for name, compress, impl, runs in (("raw", False, "kernel", 2),
+                                           ("kernel", True, "kernel", 2),
+                                           ("plain", True, "plain", 1)):
+            lm = pipe_serve.build_pipeline_lm(cfg, params, mesh, S, M,
+                                              compress=compress,
+                                              quant_impl=impl)
+            secs = []
+            for _ in range(runs):
+                before = dict(bq.launches), dict(bq.plain_calls)
+                out, s_ = _pipe_run(lambda: lm(tokens), dev)
+                secs.append(s_)
+                want = M * (S - 1) if name == "kernel" else 0
+                for kname in bq.launches:
+                    got = (bq.launches[kname] - before[0][kname],
+                           bq.plain_calls[kname] - before[1][kname])
+                    check(got == ((want, 0) if cuda else (0, want)),
+                          f"pipeline {name}: {kname} launches / plain "
+                          f"calls {got}, want {want} "
+                          f"{'launches' if cuda else 'plain calls'}")
+            outs[name], logs[name] = out, lm.fn.relayed
+            rel = _rel_err(out, ref_logits)
+            mb = B // M
+            res[name] = dict(
+                seconds=secs, tokens_per_s=B * seq / secs[-1],
+                rel_err_vs_forward=rel, relays=logs[name].relays,
+                encoded=logs[name].encoded,
+                relay_raw_bytes=logs[name].raw_bytes // logs[name].relays,
+                relay_wire_bytes=logs[name].wire_bytes // logs[name].relays,
+                wire_bytes_per_relay=pipe_serve.wire_bytes_per_relay(
+                    cfg, mb, seq, compress))
+            check(bool(torch.isfinite(out).all()),
+                  f"pipeline {name}: logits not finite")
+            if cuda and name == "raw":     # no block-quant launch to count
+                res[name]["profile"] = _profile(lambda: lm(tokens), dev)
+            del lm
+        check(res["raw"]["rel_err_vs_forward"] <= PIPE_RAW_REL,
+              f"raw pipeline vs forward: {res['raw']['rel_err_vs_forward']}")
+        check(res["kernel"]["rel_err_vs_forward"] <= ZFP_REL,
+              "compressed pipeline vs forward: "
+              f"{res['kernel']['rel_err_vs_forward']}")
+        same = bool(torch.equal(outs["kernel"], outs["plain"]))
+        check(same, "compressed pipeline: kernel codec != plain codec")
+        emit(phase="pipeline_prefill", config=cfg.name, card=card,
+             forward_s=fwd_s, forward_tokens_per_s=B * seq / fwd_s[-1],
+             kernel_equals_plain=same, raw_tol=PIPE_RAW_REL,
+             compressed_tol=ZFP_REL, **res)
+        del outs, ref_logits
+        if cuda:
+            res["prefill_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+        # decode: the single-device greedy loop, then the chain
+        (greedy, margins), greedy_s = _pipe_run(
+            lambda: _greedy_margins(params, cfg, start, PIPE_DEC_MAX_LEN,
+                                    PIPE_DEC_STEPS, dev), dev)
+        dec, n_dec = {}, PIPE_DEC_M * PIPE_DEC_MB * PIPE_DEC_STEPS
+        for name, compress, impl in (("raw", False, "kernel"),
+                                     ("kernel", True, "kernel"),
+                                     ("plain", True, "plain")):
+            fn, sw, caches0, head = pipe_serve.build_pipeline_decoder(
+                cfg, params, mesh, S, PIPE_DEC_M, PIPE_DEC_MB,
+                PIPE_DEC_MAX_LEN, PIPE_DEC_STEPS, compress=compress,
+                quant_impl=impl)
+            before = dict(bq.launches), dict(bq.plain_calls)
+            (toks, _), s_ = _pipe_run(
+                lambda: fn(sw, caches0, start, start_pos, head), dev)
+            want = PIPE_DEC_M * PIPE_DEC_STEPS * (S - 1) \
+                if name == "kernel" else 0
+            for kname in bq.launches:
+                got = (bq.launches[kname] - before[0][kname],
+                       bq.plain_calls[kname] - before[1][kname])
+                check(got == ((want, 0) if cuda else (0, want)),
+                      f"pipeline decode {name}: {kname} launches / plain "
+                      f"calls {got}, want {want}")
+            dec[name] = dict(seconds=s_, tokens_per_s=n_dec / s_,
+                             toks=toks, relays=fn.relayed.relays,
+                             encoded=fn.relayed.encoded,
+                             relay_wire_bytes=fn.relayed.wire_bytes)
+            if cuda and name == "raw":
+                # a shorter run on fresh caches: the profiler's processing
+                # of the whole run's ~167,000 kernels took ~100 s
+                fn, sw, caches0, head = pipe_serve.build_pipeline_decoder(
+                    cfg, params, mesh, S, PIPE_DEC_M, PIPE_DEC_MB,
+                    PIPE_DEC_MAX_LEN, PIPE_PROFILE_STEPS)
+                dec[name]["profile"] = {"steps": PIPE_PROFILE_STEPS,
+                                        **_profile(lambda: fn(
+                                            sw, caches0, start, start_pos,
+                                            head), dev)}
+            del fn, sw, caches0
+        match = _match_greedy(dec["raw"]["toks"], greedy, margins)
+        same_dec = bool(torch.equal(dec["kernel"]["toks"],
+                                    dec["plain"]["toks"]))
+        emit(phase="pipeline_decode", config=cfg.name, card=card,
+             greedy_s=greedy_s, greedy_tokens_per_s=n_dec / greedy_s,
+             min_greedy_margin=float(margins.min()), margin_tol=PIPE_MARGIN,
+             kernel_equals_plain=same_dec,
+             compressed_tokens_equal_raw=int(
+                 (dec["kernel"]["toks"] == dec["raw"]["toks"]).sum()),
+             **match, **{k: {f: v for f, v in d.items() if f != "toks"}
+                         for k, d in dec.items()})
+        check(match["worst_margin_at_divergence"] < PIPE_MARGIN,
+              f"pipeline decode: a token differs from greedy at margin "
+              f"{match['worst_margin_at_divergence']}")
+        check(same_dec, "compressed decode: kernel codec tokens != plain")
+    counts, plain = dict(bq.launches), dict(bq.plain_calls)
+    want = 2 * M * (S - 1) + PIPE_DEC_M * PIPE_DEC_STEPS * (S - 1)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    emit(phase="pipeline", config=cfg.name, card=card, launches=counts,
+         plain_calls=plain, launches_want=want, peak_device_bytes=peak,
+         phase_s=time.perf_counter() - t_phase)
+    del params
+    return {"counts": counts, "plain": plain, "want": want}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2324,6 +2583,8 @@ def main() -> int:
             zoo_decode_phase(torch.device("cpu"),
                              cfg_base.reduced(cfg, **heads), 2, prompt, 6, 64,
                              "cpu rehearsal", "smoke widths")
+        pipeline_phase(torch.device("cpu"), phi3_mini_3_8b.smoke_config(),
+                       "cpu rehearsal")
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -2390,7 +2651,18 @@ def main() -> int:
                        for k, n in z["by_shape"].items()]
         gc.collect()
         torch.cuda.empty_cache()
-    times = time_kernels(dev, SWEEP)
+    t_pipe = time.perf_counter()
+    pipe = pipeline_phase(dev, phi3_mini_3_8b.CONFIG, card)
+    emit(phase="pipeline_phase_done", seconds=time.perf_counter() - t_pipe)
+    for name in ("quantize_blocks", "dequantize_blocks"):
+        check(pipe["counts"][name] == pipe["want"],
+              f"{name} launched {pipe['counts'][name]} times on the "
+              f"pipeline path, its schedules imply {pipe['want']}")
+        check(pipe["plain"][name] == 0,
+              f"{name} ran its plain version on the pipeline path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = time_kernels(dev, SWEEP + PIPE_GRIDS)
     check(set(main["sizes"]) <= set(RAGGED),
           f"slice A's leaves {main['sizes']} are not all checked in RAGGED")
     rtimes = time_ragged(dev, RAGGED_TIMED)
@@ -2420,7 +2692,8 @@ def main() -> int:
             "launches": main["counts"][name],
             "launches_by_path": {"main_path": main["counts"][name],
                                  "controller": ctl["counts"][name],
-                                 "procs": procs["counts"][name]},
+                                 "procs": procs["counts"][name],
+                                 "pipeline": pipe["counts"][name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -2428,6 +2701,10 @@ def main() -> int:
             "n": n, "tiles": t["tiles"],
             "grid_4096x128": {k: g[k] for k in (
                 "ms", "call_ms", "plain_ms", "bound_ms")},
+            "pipeline_grids": [
+                {"shape": [R, C], **{k: times[(R, C, name)][k] for k in (
+                    "ms", "call_ms", "plain_ms", "plain_call_ms", "bound_ms",
+                    "bound_by")}} for R, C in PIPE_GRIDS],
             "wire_call_ms": {k: v for w in wtimes if w["n"] == n
                              for k, v in w.items() if k.endswith("_ms")},
             "card": card})

@@ -1,0 +1,53 @@
+"""Stage-to-device maps (the twin of ``repro.launch.mesh``).
+
+The reference lays DEFER's chain on the "stage" axis of a JAX mesh and runs
+it as one SPMD program.  The port has no SPMD mesh: its pipeline is one
+process that drives every stage itself (:mod:`repro_torch.core.pipeline`),
+so a mesh here is only which device each stage runs on.
+
+``make_mesh_compat`` and ``make_production_mesh`` are the reference's TPU
+mesh shapes for the dry run (``launch/dryrun.py``); they come with its port
+(ROADMAP queue 1 item 13) and are not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.device import get_device
+
+
+@dataclasses.dataclass(frozen=True)
+class StageMesh:
+    """One device per pipeline stage, in chain order."""
+    devices: tuple[torch.device, ...]
+    axis: str = "stage"
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.devices)
+
+
+def make_pipeline_mesh(num_stages: int,
+                       devices: Sequence[str | torch.device] | None = None
+                       ) -> StageMesh:
+    """DEFER's chain of ``num_stages`` stages.  With no ``devices``, every
+    stage is on :func:`repro_torch.device.get_device`'s device (the one card,
+    or the CPU where the caller set it); given several, stages go round
+    robin over them."""
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    devs = ([get_device()] if devices is None
+            else [get_device(d) for d in devices])
+    if not devs:
+        raise ValueError("devices is empty")
+    return StageMesh(tuple(devs[s % len(devs)] for s in range(num_stages)))
+
+
+def make_host_mesh(num_stages: int = 1,
+                   device: str | torch.device | None = None) -> StageMesh:
+    """Every stage on one device: ``device``, or
+    :func:`repro_torch.device.get_device`'s (CPU tests and smoke runs)."""
+    return make_pipeline_mesh(num_stages, [get_device(device)])

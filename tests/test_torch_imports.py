@@ -44,7 +44,11 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.runtime.controller",
                  "repro_torch.runtime.supervisor",
                  "repro_torch.runtime.worker",
-                 "repro_torch.core.emulator"):
+                 "repro_torch.core.emulator",
+                 "repro_torch.core.pipeline",
+                 "repro_torch.core.pipeline_decode",
+                 "repro_torch.launch", "repro_torch.launch.mesh",
+                 "repro_torch.launch.serve"):
         assert want in names, want
 
 
