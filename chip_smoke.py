@@ -118,14 +118,36 @@ Phases, each printing JSON records on their own lines:
    top-1/top-2 margin is under 1e-2, and compressed, the kernels' tokens
    equal the plain codec's; block quant is also held against its plain
    version at the relay's grids ([256, 3072] and [8, 3072]) and timed
-   there.
+   there;
+9. slice M's path, the moe family: dbrx-132b at its published widths (d_model
+   6144, 48 query over 8 kv heads of 128, 16 experts top-4 at capacity
+   factor 1.25, d_ff 10752 gated, vocab 100352, f32, seeded fan-in
+   weights drawn on the card) cut to 4 of its 40 layers.  4 prompts of 512
+   tokens through ``transformer.prefill`` (544-slot caches), then 16 greedy
+   ``decode_step(..., use_kernel=True)``s, each held against
+   ``decode_step(use_kernel=False)`` from a copy of its caches; prefill's
+   last logits against ``forward`` over the prompt; the tokens against
+   ``forward`` over the whole sequence where ``models/moe.py``'s dispatch
+   record shows no dropped assignment in it or in the prefill (else the
+   drops and errors are recorded); decode attention must launch once per
+   layer and step at (4, 48, 8, 128, 544) and its plain version never.
+   Then ``build_ep_pipeline``'s chain, 2 stages x 2 expert shards (8
+   experts, 24 query and 4 kv heads a shard), 8 requests of 128 tokens in
+   4 microbatches: at capacity factor 8.0 the raw chain within 1e-4 of
+   ``forward``; at 8.0 and 1.25 the relay through the block-quant kernels
+   bit for bit the plain codec's, M * (S - 1) launches a call and no plain
+   call, and within 0.15 of ``forward`` at every token whose expert set
+   the relay's rounding left alone, where nothing dropped; block quant is
+   held against its plain version at the relay's grid [256, 6144] and
+   timed there, decode attention at dbrx's shape.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phases 4 to 8 on the CPU at small sizes (no
+``--cpu-rehearsal`` runs phases 4 to 9 on the CPU at small sizes (no
 kernel build; slice E with its head geometry kept, slice L at phi3's smoke
-config; phases 4b and 4c with
+config, slice M at a small width with dbrx's routing; phases 4b and 4c
+with
 ResNet50's 1000 classes, 4c's workers on the CPU), to rehearse the
 control flow without a card; it never prints a result and exits 3.
 """
@@ -151,16 +173,21 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.core.graph import tree_flatten_with_path  # noqa: E402
+from repro_torch.core.graph import (tree_flatten_with_path,  # noqa: E402
+                                    tree_leaves)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_quant as bq  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.configs import base as cfg_base  # noqa: E402
-from repro_torch.configs import (gemma3_4b, granite_34b,  # noqa: E402
-                                 mamba2_2_7b, phi3_mini_3_8b)
+from repro_torch.configs import (dbrx_132b, gemma3_4b,  # noqa: E402
+                                 granite_34b, mamba2_2_7b, phi3_mini_3_8b)
+from repro_torch.core import pipeline_ep  # noqa: E402
+from repro_torch.core.pipeline import stack_stages  # noqa: E402
 from repro_torch.models import cnn, lm_graph, transformer  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.core.metrics import H100  # noqa: E402
 from repro_torch.launch import serve as pipe_serve  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -194,7 +221,7 @@ DA_BF16_ATOL = 2e-2     # the reference sweep's bar for bf16 inputs
 # heads (one tile: nothing to prefetch; a last split of one tile; a last
 # split of five tiles) and the tiled form's at gemma3-4b's and
 # granite-34b's heads (one tile; a last split of one tile); then the
-# decode path's at batch 1 and 8
+# decode path's at batch 1 and 8, and slice M's (dbrx-132b's G 6 at hd 128)
 DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
             (1, 16, 4, 80, 640), (4, 8, 4, 256, 1024), (4, 8, 4, 256, 2048),
             (4, 48, 1, 128, 2048), (1, 48, 1, 128, 256), (2, 40, 8, 96, 650),
@@ -202,20 +229,23 @@ DA_SWEEP = [(1, 4, 4, 64, 256), (2, 8, 2, 64, 512), (2, 8, 1, 128, 1024),
             (2, 24, 2, 128, 32), (2, 24, 2, 128, 288), (2, 24, 2, 128, 672),
             (2, 8, 4, 256, 32), (2, 8, 4, 256, 160), (2, 48, 1, 128, 32),
             (2, 48, 1, 128, 96)]
-DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096)]
+DA_PATH = [(1, 24, 2, 128, 4096), (8, 24, 2, 128, 4096),
+           (4, 48, 8, 128, 544)]
 # an all-empty row 0 beside a filled row 1 at C 100 and 650, which
 # ops.decode_attention pads for the kernel (the padding must get no
 # weight): the register, tiled and shared-memory forms
 DA_EMPTY_ROW = [(2, 24, 2, 128, 100), (2, 24, 2, 128, 650),
                 (2, 8, 4, 256, 100), (2, 8, 4, 256, 650),
                 (2, 8, 2, 100, 100), (2, 8, 2, 100, 650)]
-# batch invariance at B=8: slice C's heads, granite-34b's and gemma3-4b's
+# batch invariance at B=8: slice C's heads, granite-34b's, gemma3-4b's and
+# dbrx-132b's
 DA_INVARIANCE = [(8, 24, 2, 128, 4096), (8, 48, 1, 128, 2048),
-                 (8, 8, 4, 256, 2048)]
+                 (8, 8, 4, 256, 2048), (8, 48, 8, 128, 544)]
 # timed beside slice C's step shape: slice E's layers at B=4 (gemma3-4b's
-# global and sliding-window ring caches, granite-34b's)
+# global and sliding-window ring caches, granite-34b's) and slice M's
+# (dbrx-132b's)
 DA_ZOO_TIMED = [(4, 8, 4, 256, 2048), (4, 8, 4, 256, 1024),
-                (4, 48, 1, 128, 2048)]
+                (4, 48, 1, 128, 2048), (4, 48, 8, 128, 544)]
 # StarCoder2-3B (arXiv:2402.19173; src/repro/configs/starcoder2_3b.py) in
 # the reference's decode graph: a 4096-slot cache, its sliding window
 STARCODER2_3B = dict(vocab=49152, d_model=3072, n_layers=30, num_heads=24,
@@ -293,6 +323,33 @@ PIPE_PROFILE_STEPS = 4      # the profiled decode run's steps
 # [mb*seq, d] = [256, 3072] (no padding) and a decode step's [2, 3072]
 # padded to 8 rows
 PIPE_GRIDS = [(256, 3072), (8, 3072)]
+# Slice M, the moe family (models/moe.py, core/pipeline_ep.py, sharding.py):
+# dbrx-132b (hf:databricks/dbrx-base; src/repro_torch/configs/dbrx_132b.py)
+# at its published widths (d_model 6144, 48 query over 8 kv heads of 128,
+# 16 experts top-4 at capacity factor 1.25, d_ff 10752 gated, vocab
+# 100352), cut to 4 of its 40 layers.  Serving: 4 prompts of 512 tokens,
+# prefill into 544-slot caches, 16 greedy decode_step(use_kernel=True)s,
+# each held against decode_step(use_kernel=False) from a copy of its caches
+# (the zoo's bar), prefill's last logits against forward over the same
+# prompt (the same token count, so the same dispatch; only the head's GEMM
+# shape differs: the zoo's bar), the tokens against forward over the whole
+# sequence only where neither that forward nor the prefill dropped an
+# assignment (a forward over more tokens has another capacity).  The
+# expert-parallel chain: 2 stages x 2 expert shards, 8 requests of 128
+# tokens in 4 microbatches of 2 ([256, 6144] relays); at capacity factor
+# 8.0 (the reference's tests/test_perf_variants.py) no dispatch can drop
+# and the raw chain is held to the reference's 1e-4 of forward; at 1.25
+# the compressed chain must equal the plain codec's bit for bit and lie
+# within the reference's 0.15 of forward.
+MOE_CUT = ("num_layers 40 -> 4: the 40-layer model is 490.24 GiB in f32; "
+           "4 layers are 53.16 GiB, 5 would be 65.30 GiB of an 80 GB card")
+MOE_BATCH, MOE_PROMPT, MOE_STEPS, MOE_MAX_LEN = 4, 512, 16, 544
+MOE_EP_STAGES, MOE_EP_SHARDS, MOE_EP_REQUESTS, MOE_EP_SEQ, MOE_EP_M = \
+    2, 2, 8, 128, 4
+MOE_EP_CF, MOE_RAW_REL = 8.0, 1e-4
+MOE_PROFILE_STEPS = 4
+# the expert-parallel chain's relay grid: a microbatch's [mb*seq, d]
+MOE_GRIDS = [(256, 6144)]
 # subnormal tiles [a, -a/2, 0.3a, 0...]: (a, q of the first 3, scale) as
 # the reference computes them (XLA reads subnormals as zero and flushes a
 # subnormal scale; a TPU has none)
@@ -441,7 +498,8 @@ def compare_kernels(dev) -> dict:
     """Kernel == plain version, bit for bit, on the sweep and the edge
     tiles.  Returns the largest absolute difference seen per kernel."""
     err = {"quantize_blocks": 0.0, "dequantize_blocks": 0.0}
-    cases = [(s, _data(s, seed=i)) for i, s in enumerate(SWEEP + PIPE_GRIDS)]
+    cases = [(s, _data(s, seed=i))
+             for i, s in enumerate(SWEEP + PIPE_GRIDS + MOE_GRIDS)]
     cases.append(((40, 128), _edge_tiles()))
     for shape, x in cases:
         xd = x.to(dev)
@@ -534,7 +592,8 @@ def compare_decode_attention(dev) -> dict:
     Returns the largest error per dtype."""
     err = {"f32": 0.0, "bf16": 0.0}
     cases = [(s, None) for s in DA_SWEEP]
-    cases += [(s, [128 + 497 * b for b in range(s[0])]) for s in DA_PATH]
+    cases += [(s, [min(s[4], 128 + 497 * b) for b in range(s[0])])
+              for s in DA_PATH]
     cases += [(DA_PATH[1], [0] * DA_PATH[1][0])]              # all empty
     cases += [(s, [0, s[4] - 30]) for s in DA_EMPTY_ROW]
     for i, ((B, H, kv, hd, C), valid) in enumerate(cases):
@@ -1965,12 +2024,15 @@ def _profile(fn, dev) -> dict:
 
 def check_against_forward(params, cfg, tokens, gen: list, step_logits: list,
                           margin_tol: float, dev, phase: str,
-                          peak: dict) -> float:
+                          peak: dict, skip=None) -> float:
     """Greedy decode against the plain ``forward`` over the extended
     sequences: every token (``gen``: the prefill's, then each step's) must
     equal the forward's argmax wherever its top-1/top-2 margin is at least
     ``margin_tol``, and the decode logits lie within half of it of the
-    forward's; every logit finite, the streams distinct.  Records the
+    forward's; every logit finite, the streams distinct.  ``skip()``, read
+    after the forward, may name a reason the two may rightly differ (a
+    moe forward over more tokens dispatches at another capacity): then
+    the errors are recorded and only finiteness is checked.  Records the
     peak device memory under ``peak["forward"]``; returns the forward's
     seconds."""
     prompt = tokens.shape[1]
@@ -1992,18 +2054,22 @@ def check_against_forward(params, cfg, tokens, gen: list, step_logits: list,
     e_dec = float((dec_logits - fwd[:, 1:]).abs().max())
     finite = all(bool(torch.isfinite(t).all()) for t in (fwd, dec_logits))
     distinct = len({tuple(r) for r in got.tolist()})
+    reason = skip() if skip else None
     emit(phase=phase, tokens=int(got.numel()),
          tokens_differing=int(differ.sum()),
          differing_above_margin=int((differ & ~exempt).sum()),
          positions_below_margin=int(exempt.sum()),
          min_margin=float(margin.min()), margin_tol=margin_tol,
          decode_logits_max_abs_err=e_dec, all_logits_finite=finite,
-         streams_distinct=distinct)
+         streams_distinct=distinct, checked=reason is None,
+         skipped_because=reason)
+    check(finite, "decode or forward logits not finite")
+    if reason is not None:
+        return forward_s
     check(not bool((differ & ~exempt).any()),
           "greedy tokens differ from the plain forward's argmax above "
           "the margin")
     check(e_dec <= margin_tol / 2, f"decode logits vs forward: {e_dec}")
-    check(finite, "decode or forward logits not finite")
     check(distinct == got.shape[0], "different prompts gave identical "
                                     "token streams")
     return forward_s
@@ -2144,17 +2210,21 @@ def mamba2_phase(dev, cfg, batch: int, prompt: int, steps: int,
 # -- phase 7: slice E's path, the LM zoo's attention decode ------------------------
 
 def dense_params(cfg, seed: int, dev) -> dict:
-    """Seeded fan-in weights in ``init_lm``'s tree for the ``dense`` family,
-    drawn on ``dev`` with an explicit generator: He-init ``w ~ N(0,
-    2/fan_in)`` for every projection, norm scales 1, the embedding ``N(0,
-    0.02)`` with zero pad-vocab rows (and an untied head's pad columns).
+    """Seeded fan-in weights in ``init_lm``'s tree for the ``dense`` and
+    ``moe`` families, drawn on ``dev`` with an explicit generator: He-init
+    ``w ~ N(0, 2/fan_in)`` for every projection (a moe layer's router and
+    each expert's up, gate and down too), norm scales 1, the embedding
+    ``N(0, 0.02)`` with zero pad-vocab rows (and an untied head's pad
+    columns).  Drawn on the card because dbrx-132b's 14.3 B numpy draws
+    would take 53 GiB of host memory and minutes.
 
     The MLP's down projection is centred over its fan-in (each output's
     weights sum to 0).  A GELU's output has a positive mean, so an
     uncentred random down projection adds one fixed vector at every
     position of every layer; at granite-34b's widths that vector decides
     the argmax, and different prompts decode the same tokens (2 distinct
-    streams of 4 on the card).  A trained model does not do that."""
+    streams of 4 on the card).  A trained model does not do that.  Each
+    expert's down projection is centred likewise."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     s = transformer.attn_spec(cfg, None)
@@ -2169,15 +2239,33 @@ def dense_params(cfg, seed: int, dev) -> dict:
     def norm(*shape):
         return {"scale": torch.ones(shape, device=dev)}
 
-    def layers(n):
-        down = he(n, f, d)
-        down["w"] -= down["w"].mean(dim=1, keepdim=True)
-        mlp = {"ln": norm(n, d), "up": he(n, d, f), "down": down}
+    def experts(n, fan_in, fan_out):
+        E = cfg.moe.num_experts
+        return torch.randn((n, E, fan_in, fan_out), generator=gen,
+                           device=dev).mul_(math.sqrt(2.0 / fan_in))
+
+    def moe(n):
+        down = experts(n, f, d)
+        down -= down.mean(dim=2, keepdim=True)
+        out = {"ln": norm(n, d), "router": he(n, d, cfg.moe.num_experts)["w"],
+               "up": experts(n, d, f), "down": down}
         if cfg.gated_mlp:
-            mlp["gate"] = he(n, d, f)
+            out["gate"] = experts(n, d, f)
+        return out
+
+    def layers(n):
+        if cfg.moe:
+            ffn = {"moe": moe(n)}
+        else:
+            down = he(n, f, d)
+            down["w"] -= down["w"].mean(dim=1, keepdim=True)
+            ffn = {"mlp": {"ln": norm(n, d), "up": he(n, d, f),
+                           "down": down}}
+            if cfg.gated_mlp:
+                ffn["mlp"]["gate"] = he(n, d, f)
         return {"attn": {"ln": norm(n, d), "wq": he(n, d, hq),
                          "wk": he(n, d, hkv), "wv": he(n, d, hkv),
-                         "wo": he(n, hq, d)}, "mlp": mlp}
+                         "wo": he(n, hq, d)}, **ffn}
 
     table = torch.zeros((cfg.padded_vocab, d), device=dev)
     table[:cfg.vocab] = torch.randn((cfg.vocab, d), generator=gen,
@@ -2552,6 +2640,343 @@ def pipeline_phase(dev, cfg, card: str) -> dict:
     return {"counts": counts, "plain": plain, "want": want}
 
 
+# -- phase 9: slice M's path, the moe family ---------------------------------------
+
+def _moe_drops() -> dict:
+    """The dispatch record since its last reset: assignments made and
+    dropped, by (tokens, capacity)."""
+    return {f"{t}x{c}": {"dispatches": r["dispatches"],
+                         "assignments": r["assignments"],
+                         "dropped": int(r["dropped"])}
+            for (t, c), r in moe_mod.dispatch_record.items()}
+
+
+def _dropped(rec: dict) -> int:
+    return sum(r["dropped"] for r in rec.values())
+
+
+def _recorded(fn):
+    """``fn()`` with the dispatch record reset before it: (its result, the
+    record it left)."""
+    moe_mod.reset_dispatch_record()
+    out = fn()
+    return out, _moe_drops()
+
+
+def moe_serve(dev, cfg, params, batch: int, prompt: int, steps: int,
+              max_len: int, card: str) -> dict:
+    """Slice M's serving path: ``prefill`` of ``batch`` seeded prompts,
+    then ``steps`` greedy ``decode_step(use_kernel=True)``s, each held
+    against ``decode_step(use_kernel=False)`` from a copy of its caches;
+    prefill's last logits against ``forward`` over the prompt; the tokens
+    against ``forward`` over the whole sequence where the dispatch record
+    shows no drop in it or in the prefill.  Returns decode attention's
+    launch counts."""
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                              .astype(np.int32)).to(dev)
+    peak = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    prefill_s, prefill_drops = [], []
+    for _ in range(2):              # the first includes cuBLAS warm-up
+        (out, s_), rec = _recorded(lambda: _pipe_run(
+            lambda: transformer.prefill(params, cfg, tokens,
+                                        max_len=max_len), dev))
+        prefill_s.append(s_)
+        prefill_drops.append(rec)
+    last, caches = out
+    check(bool(torch.isfinite(last).all()), "moe prefill logits not finite")
+    if cuda:
+        peak["prefill"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    (fwd, fwd_s), fwd_rec = _recorded(lambda: _pipe_run(
+        lambda: transformer.forward(params, cfg, tokens)[0][:, -1:].clone(),
+        dev))
+    e_pre = float((last - fwd).abs().max())
+    emit(phase="moe_prefill_vs_forward", config=cfg.name, tokens=int(
+        tokens.numel()), max_abs_err=e_pre, tol=ZOO_STEP_ATOL,
+         prefill_dispatch=prefill_drops[-1], forward_dispatch=fwd_rec,
+         forward_s=fwd_s)
+    check(prefill_drops[-1] == fwd_rec, "moe prefill and forward over the "
+          "same prompt dispatched differently")
+    check(e_pre <= ZOO_STEP_ATOL, f"moe prefill vs forward: {e_pre}")
+    del fwd
+
+    tok = last.argmax(-1).to(torch.int32)                     # [B, 1]
+    gen, step_logits, step_s, plain_s, step_err = [tok], [], [], [], []
+    pos0 = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+    da.reset_counts()
+    moe_mod.reset_dispatch_record()
+    for i in range(steps):
+        before = _clone(caches)
+        (logits, caches), s_ = _pipe_run(lambda: transformer.decode_step(
+            params, cfg, tok, pos0 + i, caches, use_kernel=True), dev)
+        step_s.append(s_)
+        (plain, _), s_ = _pipe_run(lambda: transformer.decode_step(
+            params, cfg, tok, pos0 + i, before, use_kernel=False), dev)
+        plain_s.append(s_)
+        step_err.append(float((logits - plain).abs().max()))
+        del before, plain
+        tok = logits.argmax(-1).to(torch.int32)
+        step_logits.append(logits)
+        gen.append(tok)
+    counts, plain_calls = dict(da.launches), dict(da.plain_calls)
+    by_shape = dict(da.launches_by_shape)
+    decode_rec = _moe_drops()
+    if cuda:
+        peak["decode"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    emit(phase="moe_kernel_vs_plain_step", config=cfg.name, steps=steps,
+         max_abs_err=max(step_err), tol=ZOO_STEP_ATOL, per_step=step_err,
+         logits_max_abs=float(torch.cat(step_logits).abs().max()),
+         decode_dispatch=decode_rec)
+    check(max(step_err) <= ZOO_STEP_ATOL,
+          f"{cfg.name}: kernel decode_step vs plain: {max(step_err)}")
+    check(_dropped(decode_rec) == 0, f"decode at B={batch} dropped")
+    prof = {}
+    if cuda:
+        # profiled after the counts were read: not the path's launches
+        def few_steps(tok=tok, caches=caches):
+            for i in range(MOE_PROFILE_STEPS):
+                logits, caches = transformer.decode_step(
+                    params, cfg, tok, pos0 + steps + i, caches,
+                    use_kernel=True)
+                tok = logits.argmax(-1).to(torch.int32)
+
+        prof = {"steps": MOE_PROFILE_STEPS, **_profile(few_steps, dev)}
+    del caches, last
+    moe_mod.reset_dispatch_record()
+    pre_dropped = _dropped(prefill_drops[-1])
+
+    def skip():
+        rec = _moe_drops()
+        if pre_dropped == 0 and _dropped(rec) == 0:
+            return None
+        return (f"dispatch dropped {pre_dropped} assignments in prefill and "
+                f"{_dropped(rec)} in the forward over the whole sequence "
+                f"({rec})")
+
+    forward_s = check_against_forward(params, cfg, tokens, gen, step_logits,
+                                      ZOO_MARGIN, dev, "moe_decode_vs_forward",
+                                      peak, skip=skip)
+    n_tok = batch * steps
+    emit(phase="moe_serve", config=cfg.name, card=card, batch=batch,
+         prompt_len=prompt, max_len=max_len, prefill_s=prefill_s,
+         prefill_tokens_per_s=batch * prompt / prefill_s[-1],
+         decode_s=sum(step_s), decode_tokens_per_s=n_tok / sum(step_s),
+         step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
+         step_p99_ms=float(np.percentile(step_s, 99) * 1e3),
+         plain_step_p50_ms=float(np.percentile(plain_s, 50) * 1e3),
+         forward_s=forward_s, prefill_dispatch=prefill_drops,
+         peak_device_bytes=max(peak.values()) if peak else None,
+         peak_device_bytes_by_stage=peak,
+         kernels_per_decoded_token=(
+             prof["device_kernels"] / (MOE_PROFILE_STEPS * batch)
+             if prof else None),
+         profile=prof, decode_attention_launches=counts,
+         decode_attention_plain_calls=plain_calls)
+    return {"counts": counts, "plain": plain_calls, "by_shape": by_shape,
+            "want": cfg.num_layers * steps}
+
+
+def _flipped_tokens(raw_log: list, log: list, S: int, M: int, per_stage: int,
+                    ax: int, T_l: int) -> torch.Tensor:
+    """Tokens [M * ax * T_l] of the EP chain whose expert set differs in
+    some layer between two runs, from their routing logs (the chain's
+    dispatch order: tick, stage, layer, shard)."""
+    flipped = torch.zeros(M * ax * T_l, dtype=torch.bool)
+    pairs = iter(zip(raw_log, log, strict=True))
+    for t in range(M + S - 1):
+        for s in range(max(0, t - M + 1), min(S, t + 1)):
+            for _ in range(per_stage):
+                for i in range(ax):
+                    a, b = next(pairs)
+                    lo = ((t - s) * ax + i) * T_l
+                    moved = a.sort(-1).values != b.sort(-1).values
+                    flipped[lo:lo + T_l] |= moved.any(-1).cpu()
+    check(next(pairs, None) is None, "routing logs longer than the schedule")
+    return flipped
+
+
+def moe_ep_chain(dev, cfg, params, card: str, requests: int, seq: int,
+                 M: int) -> dict:
+    """Slice M's expert-parallel chain: ``build_ep_pipeline`` over
+    MOE_EP_STAGES stages x MOE_EP_SHARDS expert shards on ``dev``, at
+    capacity factor MOE_EP_CF (no dispatch can drop) and at the config's
+    own, raw and compressed through the block-quant kernels and through
+    the plain codec, each against ``forward`` over the same batch.  The
+    compressed chain must equal the plain codec's bit for bit.  Where the
+    record shows that neither the chain nor the forward dropped an
+    assignment, the raw chain is held to MOE_RAW_REL of the forward, and
+    the compressed chain to ZFP_REL of it at every token whose expert set
+    the lossy relay left as the raw chain's (its rounding moves routing
+    decisions that lie near a tie, a jump no bar on a smooth error
+    covers; those tokens are counted and their error reported); where one
+    dropped, the two dispatch at other capacities (each shard's T/ax
+    tokens against the forward's T) and the errors are only reported.
+    Returns block quant's launch and plain-call counts over the compressed
+    calls and the launches the schedule implies."""
+    cuda = dev.type == "cuda"
+    S, ax = MOE_EP_STAGES, MOE_EP_SHARDS
+    n_units = cfg.num_layers // cfg.unit_layers
+    mesh = make_host_mesh(S, dev, expert_shards=ax)
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (requests, seq))
+                              .astype(np.int32)).to(dev)
+    stacked, valid = stack_stages(params["units"], n_units, S)
+    views = all(a.untyped_storage().data_ptr()
+                == b.untyped_storage().data_ptr() for a, b in zip(
+                    tree_leaves(stacked), tree_leaves(params["units"])))
+    check(views, "the stage stack copied the weights")
+    mb = requests // M
+    emit(phase="moe_ep_setup", config=cfg.name, stages=S, expert_shards=ax,
+         layers_per_stage=-(-n_units // S),
+         experts_per_shard=cfg.moe.num_experts // ax,
+         heads_per_shard=cfg.num_heads // ax,
+         kv_heads_per_shard=max(1, cfg.kv_heads // ax),
+         requests=requests, seq=seq, microbatches=M,
+         relay_grid=[mb * seq, cfg.d_model], stage_weights_are_views=views,
+         devices=[str(d) for d in mesh.devices])
+
+    def chain(c, compress, impl):
+        factory = pipeline_ep.build_ep_pipeline(
+            c, mesh, num_stages=S, num_microbatches=M, compress=compress,
+            quant_impl=impl)
+        fn = factory(stacked, valid)
+        x = lm_layers.embed(params["embed"], tokens)
+        y = fn((stacked, valid), x.reshape(M, mb, seq, -1))
+        return transformer._logits(params, c, y.reshape(requests, seq, -1)), fn
+
+    res = {}
+    want, calls = M * (S - 1), 0
+    counts = {k: 0 for k in bq.launches}
+    plain = {k: 0 for k in bq.plain_calls}
+    for cf in (MOE_EP_CF, cfg.moe.capacity_factor):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        (ref_logits, fwd_s), fwd_rec = _recorded(lambda: _pipe_run(
+            lambda: transformer.forward(params, c, tokens)[0], dev))
+        outs, logs = {}, {}
+        for name, compress, impl in (("raw", False, "kernel"),
+                                     ("kernel", True, "kernel"),
+                                     ("plain", True, "plain")):
+            secs = []
+            for _ in range(2):      # the first includes cuBLAS warm-up
+                before = dict(bq.launches), dict(bq.plain_calls)
+                moe_mod.routing_log = logs[name] = []
+                ((out, fn), s_), rec = _recorded(lambda: _pipe_run(
+                    lambda: chain(c, compress, impl), dev))
+                moe_mod.routing_log = None
+                secs.append(s_)
+                n = want if name == "kernel" else 0
+                calls += name == "kernel"
+                for k in bq.launches:
+                    got = (bq.launches[k] - before[0][k],
+                           bq.plain_calls[k] - before[1][k])
+                    check(got == ((n, 0) if cuda else (0, n)),
+                          f"moe chain {name}: {k} launches / plain calls "
+                          f"{got}, want {n} "
+                          f"{'launches' if cuda else 'plain calls'}")
+                    counts[k] += got[0]
+                    plain[k] += got[1]
+            outs[name] = out
+            rel = _rel_err(out, ref_logits)
+            no_drop = _dropped(rec) == 0 and _dropped(fwd_rec) == 0
+            res[f"{name}_cf{cf}"] = dict(
+                seconds=secs, tokens_per_s=requests * seq / secs[-1],
+                rel_err_vs_forward=rel, checked=no_drop and name != "plain",
+                dispatch=rec, forward_dispatch=fwd_rec, forward_s=fwd_s,
+                relays=fn.relayed.relays, encoded=fn.relayed.encoded,
+                relay_wire_bytes=fn.relayed.wire_bytes)
+            check(bool(torch.isfinite(out).all()),
+                  f"moe chain {name} at cf {cf}: logits not finite")
+            check(no_drop or cf != MOE_EP_CF,
+                  f"moe chain at cf {cf} dropped: {rec} {fwd_rec}")
+            if name == "raw" and no_drop:
+                check(rel <= MOE_RAW_REL, f"raw moe chain at cf {cf} vs "
+                                          f"forward: {rel}")
+            if name == "kernel":
+                flip = _flipped_tokens(logs["raw"], logs["kernel"], S, M,
+                                       -(-n_units // S), ax, mb * seq // ax)
+                tok = ((out - ref_logits).abs().amax(-1).flatten().cpu()
+                       / ref_logits.abs().max().cpu())
+                kept = float(tok[~flip].max()) if (~flip).any() else 0.0
+                res[f"{name}_cf{cf}"].update(
+                    tokens_flipped_by_relay=int(flip.sum()),
+                    tokens=int(flip.numel()),
+                    rel_err_unflipped_tokens=kept,
+                    rel_err_flipped_tokens=(float(tok[flip].max())
+                                            if flip.any() else None),
+                    tokens_above_tol=int((tok > ZFP_REL).sum()),
+                    norm_rel_err=float((out - ref_logits).norm()
+                                       / ref_logits.norm()))
+                if no_drop:
+                    check(kept <= ZFP_REL, f"compressed moe chain at cf {cf} "
+                                           f"vs forward: {kept} at tokens "
+                                           "whose routing it kept")
+            if cuda and name == "raw" and cf == MOE_EP_CF:
+                res[f"{name}_cf{cf}"]["profile"] = _profile(
+                    lambda: chain(c, compress, impl), dev)
+            del out
+        same = bool(torch.equal(outs["kernel"], outs["plain"]))
+        res[f"cf{cf}"] = dict(
+            kernel_equals_plain=same,
+            compressed_rel_err_vs_raw=_rel_err(outs["kernel"], outs["raw"]))
+        check(same, f"compressed moe chain at cf {cf}: kernel codec != "
+                    "plain codec")
+        del ref_logits, outs
+    emit(phase="moe_ep_chain", config=cfg.name, card=card,
+         raw_tol=MOE_RAW_REL, compressed_tol=ZFP_REL, **res)
+    return {"counts": counts, "plain": plain, "want": calls * want}
+
+
+def moe_phase(dev, cfg, card: str, cut: str | None, batch: int, prompt: int,
+              steps: int, max_len: int, ep: tuple) -> dict:
+    """Slice M's path at ``cfg``: seeded fan-in weights drawn on ``dev``
+    (checked against ``init_lm``'s tree at a small width and the config's
+    parameter count), then :func:`moe_serve` and :func:`moe_ep_chain`
+    (``ep`` = requests, seq, microbatches).  Returns each's counts."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = dense_params(cfg, seed=0, dev=dev)
+    _sync(dev)
+    weights_s = time.perf_counter() - t0
+    n_params = transformer.param_count(params)
+    small = transformer.init_lm(cfg_base.reduced(
+        cfg, num_layers=cfg.num_layers), 0, device=dev)
+    same_tree = [p for p, _ in tree_flatten_with_path(params)] == \
+        [p for p, _ in tree_flatten_with_path(small)]
+    del small
+    s = transformer.attn_spec(cfg, None)
+    emit(phase="moe_setup", config=cfg.name, source=cfg.source, cut=cut,
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=s.num_heads,
+         kv_heads=s.kv_heads, group=s.num_heads // s.kv_heads,
+         head_dim=s.head_dim, d_ff=cfg.d_ff, gated_mlp=cfg.gated_mlp,
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+         capacity_factor=cfg.moe.capacity_factor, vocab=cfg.vocab,
+         parameters=n_params, weight_bytes=4 * n_params,
+         weights_s=weights_s, reference_tree=same_tree,
+         tf32="off (cudnn and matmul)")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, config "
+                                         f"says {cfg.param_count()}")
+    check(same_tree, "the drawn weights are not in init_lm's tree")
+    check(cfg.family == "moe", f"{cfg.name}: not a moe config")
+    with torch.inference_mode():
+        serve_counts = moe_serve(dev, cfg, params, batch, prompt, steps,
+                                 max_len, card)
+        ep_counts = moe_ep_chain(dev, cfg, params, card, *ep)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    del params
+    emit(phase="moe", config=cfg.name, card=card, peak_device_bytes=peak,
+         phase_s=time.perf_counter() - t_phase)
+    return {"serve": serve_counts, "ep": ep_counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2585,6 +3010,12 @@ def main() -> int:
                              "cpu rehearsal", "smoke widths")
         pipeline_phase(torch.device("cpu"), phi3_mini_3_8b.smoke_config(),
                        "cpu rehearsal")
+        # slice M at a small width with dbrx's routing (16 experts, top-4,
+        # cf 1.25) and depth, the EP chain's shapes but for the width
+        moe_phase(torch.device("cpu"), cfg_base.reduced(
+            dbrx_132b.CONFIG, num_layers=4, num_heads=8, kv_heads=4,
+            moe=dbrx_132b.CONFIG.moe), "cpu rehearsal", "smoke widths", 2,
+            64, 6, 80, (MOE_EP_REQUESTS, MOE_EP_SEQ, MOE_EP_M))
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -2662,7 +3093,32 @@ def main() -> int:
               f"{name} ran its plain version on the pipeline path")
     gc.collect()
     torch.cuda.empty_cache()
-    times = time_kernels(dev, SWEEP + PIPE_GRIDS)
+    t_moe = time.perf_counter()
+    moe = moe_phase(dev, dataclasses.replace(dbrx_132b.CONFIG, num_layers=4),
+                    card, MOE_CUT, MOE_BATCH, MOE_PROMPT, MOE_STEPS,
+                    MOE_MAX_LEN, (MOE_EP_REQUESTS, MOE_EP_SEQ, MOE_EP_M))
+    emit(phase="moe_phase_done", seconds=time.perf_counter() - t_moe)
+    da_moe = moe["serve"]
+    moe_shape = (MOE_BATCH, 48, 8, 128, MOE_MAX_LEN)
+    check(da_moe["counts"]["decode_attention"] == da_moe["want"]
+          and da_moe["by_shape"] == {moe_shape: da_moe["want"]},
+          f"dbrx-132b: decode_attention launched {da_moe['by_shape']}, want "
+          f"{da_moe['want']} at {moe_shape} (one per layer and step)")
+    check(da_moe["plain"]["decode_attention"] == 0,
+          "dbrx-132b: decode attention ran its plain version")
+    zoo_shapes += [{"config": "dbrx-132b", "shape": list(k),
+                    "form": da.form(k[1] // k[2], k[3]), "launches": n}
+                   for k, n in da_moe["by_shape"].items()]
+    for name in ("quantize_blocks", "dequantize_blocks"):
+        check(moe["ep"]["counts"][name] == moe["ep"]["want"],
+              f"{name} launched {moe['ep']['counts'][name]} times on the "
+              f"expert-parallel chain, its schedule implies "
+              f"{moe['ep']['want']}")
+        check(moe["ep"]["plain"][name] == 0,
+              f"{name} ran its plain version on the expert-parallel chain")
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = time_kernels(dev, SWEEP + PIPE_GRIDS + MOE_GRIDS)
     check(set(main["sizes"]) <= set(RAGGED),
           f"slice A's leaves {main['sizes']} are not all checked in RAGGED")
     rtimes = time_ragged(dev, RAGGED_TIMED)
@@ -2693,7 +3149,8 @@ def main() -> int:
             "launches_by_path": {"main_path": main["counts"][name],
                                  "controller": ctl["counts"][name],
                                  "procs": procs["counts"][name],
-                                 "pipeline": pipe["counts"][name]},
+                                 "pipeline": pipe["counts"][name],
+                                 "moe": moe["ep"]["counts"][name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -2704,7 +3161,7 @@ def main() -> int:
             "pipeline_grids": [
                 {"shape": [R, C], **{k: times[(R, C, name)][k] for k in (
                     "ms", "call_ms", "plain_ms", "plain_call_ms", "bound_ms",
-                    "bound_by")}} for R, C in PIPE_GRIDS],
+                    "bound_by")}} for R, C in PIPE_GRIDS + MOE_GRIDS],
             "wire_call_ms": {k: v for w in wtimes if w["n"] == n
                              for k, v in w.items() if k.endswith("_ms")},
             "card": card})
@@ -2712,9 +3169,11 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:74",
-        "launches": dec["counts"]["decode_attention"] + sum(zoo.values()),
+        "launches": (dec["counts"]["decode_attention"] + sum(zoo.values())
+                     + da_moe["counts"]["decode_attention"]),
         "launches_by_path": dict(decode_serve=dec["counts"]["decode_attention"],
-                                 **zoo),
+                                 **zoo,
+                                 moe=da_moe["counts"]["decode_attention"]),
         "launches_by_shape": zoo_shapes,
         "max_abs_err": da_errs["f32"], "max_abs_err_bf16": da_errs["bf16"],
         "ms": da_t["ms"], "plain_ms": da_t["plain_ms"],

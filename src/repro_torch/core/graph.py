@@ -76,6 +76,21 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_map_with_path(fn: Callable[[tuple, Any], Any], tree: Any,
+                       prefix: tuple = ()) -> Any:
+    """Apply ``fn(path, leaf)`` to every leaf, keeping the container
+    structure; ``path`` as :func:`tree_flatten_with_path` gives it."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(prefix, tree)
+
+
 def _leaf_bytes(leaf: Any) -> int:
     if isinstance(leaf, torch.Tensor):
         return leaf.numel() * leaf.element_size()

@@ -21,33 +21,46 @@ from repro_torch.device import get_device
 
 @dataclasses.dataclass(frozen=True)
 class StageMesh:
-    """One device per pipeline stage, in chain order."""
+    """One device per pipeline stage, in chain order.  Each stage may be
+    cut into ``expert_shards`` expert-parallel shards
+    (:mod:`repro_torch.core.pipeline_ep`), all on the stage's device."""
     devices: tuple[torch.device, ...]
     axis: str = "stage"
+    expert_shards: int = 1
 
     @property
     def num_stages(self) -> int:
         return len(self.devices)
 
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, as a JAX mesh's ``shape``."""
+        return {"expert": self.expert_shards, self.axis: self.num_stages}
+
 
 def make_pipeline_mesh(num_stages: int,
-                       devices: Sequence[str | torch.device] | None = None
-                       ) -> StageMesh:
-    """DEFER's chain of ``num_stages`` stages.  With no ``devices``, every
-    stage is on :func:`repro_torch.device.get_device`'s device (the one card,
-    or the CPU where the caller set it); given several, stages go round
-    robin over them."""
-    if num_stages < 1:
-        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+                       devices: Sequence[str | torch.device] | None = None,
+                       expert_shards: int = 1) -> StageMesh:
+    """DEFER's chain of ``num_stages`` stages, each of ``expert_shards``
+    expert shards.  With no ``devices``, every stage is on
+    :func:`repro_torch.device.get_device`'s device (the one card, or the
+    CPU where the caller set it); given several, stages go round robin
+    over them."""
+    if num_stages < 1 or expert_shards < 1:
+        raise ValueError(f"num_stages {num_stages} and expert_shards "
+                         f"{expert_shards} must be >= 1")
     devs = ([get_device()] if devices is None
             else [get_device(d) for d in devices])
     if not devs:
         raise ValueError("devices is empty")
-    return StageMesh(tuple(devs[s % len(devs)] for s in range(num_stages)))
+    return StageMesh(tuple(devs[s % len(devs)] for s in range(num_stages)),
+                     expert_shards=expert_shards)
 
 
 def make_host_mesh(num_stages: int = 1,
-                   device: str | torch.device | None = None) -> StageMesh:
+                   device: str | torch.device | None = None,
+                   expert_shards: int = 1) -> StageMesh:
     """Every stage on one device: ``device``, or
     :func:`repro_torch.device.get_device`'s (CPU tests and smoke runs)."""
-    return make_pipeline_mesh(num_stages, [get_device(device)])
+    return make_pipeline_mesh(num_stages, [get_device(device)],
+                              expert_shards)

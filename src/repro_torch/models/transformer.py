@@ -11,9 +11,7 @@ along a leading unit axis, in the reference's tree:
                  (weight-tied) attention+MLP block (zamba2)
 * encdec / audio separate encoder and decoder unit stacks; decoder units
                  add cross-attention over the encoder output
-* moe            not ported yet: every entry point raises
-                 ``NotImplementedError`` until ``models/moe.py`` lands
-                 (ROADMAP queue 1 item 12)
+* moe            unit = 1 (attn + MoE) layer
 
 ``num_layers % unit`` remainder layers are stored in a small stack of
 single-layer units.  The reference scans the units with ``lax.scan``; the
@@ -27,9 +25,12 @@ Entry points:
 ``init_lm`` and ``init_caches`` create tensors on the device that
 :func:`repro_torch.device.get_device` resolves (CUDA unless the caller
 asks for the CPU); the apply functions run on the device of the tensors
-they are given.  ``params_from_jax`` / ``caches_from_jax`` carry the JAX
-package's trees (as numpy) over with no relayout, so a JAX prefill's SSM,
-conv and KV states can be stepped by the port.
+they are given.  ``abstract_params`` gives ``init_lm``'s tree as meta
+tensors (shapes and dtypes, nothing drawn): the reference's
+``jax.eval_shape`` tree, for configs too large to draw.
+``params_from_jax`` / ``caches_from_jax`` carry the JAX package's trees
+(as numpy) over with no relayout, so a JAX prefill's SSM, conv and KV
+states can be stepped by the port.
 """
 from __future__ import annotations
 
@@ -43,8 +44,10 @@ from repro_torch.core.graph import tree_leaves, tree_map
 from repro_torch.device import get_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnSpec
+from repro_torch.models.moe import MoESpec
 from repro_torch.models.ssm import MambaSpec
 
 NEG_INF = -1e30
@@ -55,6 +58,10 @@ NEG_INF = -1e30
 def attn_spec(cfg: ModelConfig, window: int | None, causal: bool = True) -> AttnSpec:
     return AttnSpec(cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim,
                     cfg.rope_theta, window, causal)
+
+
+def moe_spec(cfg: ModelConfig) -> MoESpec:
+    return MoESpec(cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.moe)
 
 
 def mamba_spec(cfg: ModelConfig) -> MambaSpec:
@@ -68,13 +75,6 @@ def _window_at(cfg: ModelConfig, i: int) -> int | None:
 def _unit_count(cfg: ModelConfig) -> tuple[int, int]:
     u = cfg.unit_layers
     return cfg.num_layers // u, cfg.num_layers % u
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family needs models/moe.py, which the "
-            "port does not have yet (ROADMAP queue 1 item 12)")
 
 
 # -- trees ------------------------------------------------------------------------
@@ -130,8 +130,12 @@ def _init_layer(rng: np.random.Generator, cfg: ModelConfig, pos_in_unit: int,
         "attn": attn_mod.init_attn(
             rng, attn_spec(cfg, _window_at(cfg, pos_in_unit),
                            causal=not encoder), dtype),
-        "mlp": L.init_mlp(rng, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype),
     }
+    if cfg.moe and not encoder:
+        out["moe"] = moe_mod.init_moe(rng, moe_spec(cfg), dtype)
+    else:
+        out["mlp"] = L.init_mlp(rng, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                dtype)
     if cfg.encoder_layers and not encoder:
         out["cross"] = attn_mod.init_cross_attn(
             rng, attn_spec(cfg, None, causal=False), dtype)
@@ -154,14 +158,52 @@ def _pad_rows(table: np.ndarray, rows: int) -> np.ndarray:
     return np.concatenate([table, pad], axis=0)
 
 
-_F32_LEAVES = ("A_log", "D", "dt_bias")    # float32 whatever the dtype
+# float32 whatever the dtype
+_F32_LEAVES = ("A_log", "D", "dt_bias", "router")
+
+
+class _Shape:
+    """A drawn leaf's shape and dtype without its values: what
+    :class:`_ShapeRng` draws, through the initializers' arithmetic and
+    ``init_lm``'s padding and stacking (``np.concatenate`` / ``np.stack``)."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), np.dtype(dtype)
+
+    def __mul__(self, other):
+        return self
+
+    def astype(self, dtype):
+        return _Shape(self.shape, dtype)
+
+    @property
+    def T(self):
+        return _Shape(self.shape[::-1], self.dtype)
+
+    def __array_function__(self, func, types, args, kwargs):
+        arrs = args[0]
+        if func is np.stack:
+            return _Shape((len(arrs),) + arrs[0].shape, arrs[0].dtype)
+        if func is np.concatenate:
+            return _Shape((sum(a.shape[0] for a in arrs),)
+                          + arrs[0].shape[1:], arrs[0].dtype)
+        return NotImplemented
+
+
+class _ShapeRng:
+    """Stands in for the numpy generator in :func:`abstract_params`."""
+
+    def standard_normal(self, shape, dtype):
+        return _Shape(shape, dtype)
 
 
 def _place(tree, dtype: torch.dtype, dev: torch.device, key=None):
     if isinstance(tree, dict):
         return {k: _place(v, dtype, dev, k) for k, v in tree.items()}
-    t = torch.from_numpy(np.ascontiguousarray(tree)).to(dev)
-    return t if key in _F32_LEAVES else t.to(dtype)
+    dt = torch.float32 if key in _F32_LEAVES else dtype
+    if isinstance(tree, _Shape):
+        return torch.empty(tree.shape, dtype=dt, device=dev)
+    return torch.from_numpy(np.ascontiguousarray(tree)).to(dev).to(dt)
 
 
 def init_lm(cfg: ModelConfig, rng: np.random.Generator | int = 0,
@@ -171,9 +213,20 @@ def init_lm(cfg: ModelConfig, rng: np.random.Generator | int = 0,
     and placed on ``device`` in ``dtype``.  The draws follow the
     reference's initializers, not its random stream: parity tests carry
     the reference's own weights over with :func:`params_from_jax`."""
-    _no_moe(cfg)
-    dev = get_device(device)
-    rng = np.random.default_rng(rng)
+    return _build_params(cfg, np.random.default_rng(rng), dtype,
+                         get_device(device))
+
+
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16
+                    ) -> dict:
+    """``init_lm``'s tree as meta tensors, without drawing or allocating
+    anything: shapes and dtypes for configs too large to draw (dbrx-132b
+    is 490 GiB in f32).  The reference's default dtype."""
+    return _build_params(cfg, _ShapeRng(), dtype, torch.device("meta"))
+
+
+def _build_params(cfg: ModelConfig, rng, dtype: torch.dtype,
+                  dev: torch.device) -> dict:
     f32 = np.float32
     n_units, rem = _unit_count(cfg)
     embed = L.init_embedding(rng, cfg.vocab, cfg.d_model, f32)
@@ -244,7 +297,11 @@ def _apply_layer(lp: dict, cfg: ModelConfig, x, positions, aux, window,
     if "cross" in lp and enc_out is not None:
         x = attn_mod.cross_attention(lp["cross"], attn_spec(cfg, None, False),
                                      x, enc_out, eps=cfg.norm_eps)
-    x = L.mlp(lp["mlp"], x, cfg.norm_eps)
+    if "moe" in lp:
+        x, a = moe_mod.moe_block(lp["moe"], moe_spec(cfg), x, cfg.norm_eps)
+        aux = aux + a
+    else:
+        x = L.mlp(lp["mlp"], x, cfg.norm_eps)
     return x, aux
 
 
@@ -302,7 +359,6 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``use_kernel`` runs every Mamba layer's SSD scan as the port's CUDA
     kernel; ``unroll`` is the reference's choice between a scan and an
     unrolled loop, and the port always loops."""
-    _no_moe(cfg)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
     x = _fuse_prefix(cfg, x, prefix_embeds)
@@ -373,7 +429,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device | None = None) -> dict:
     """Empty decode caches on ``device`` in the reference's tree."""
-    _no_moe(cfg)
     dev = get_device(device)
     n_units, rem = _unit_count(cfg)
     kind = _layer_kind(cfg)
@@ -413,7 +468,10 @@ def _decode_layer(lp, cfg, x, pos, cache, window, enc_out, use_kernel):
     if "cross" in lp and enc_out is not None:
         x = attn_mod.cross_attention(lp["cross"], attn_spec(cfg, None, False),
                                      x, enc_out, eps=cfg.norm_eps)
-    x = L.mlp(lp["mlp"], x, cfg.norm_eps)
+    if "moe" in lp:
+        x, _ = moe_mod.moe_block(lp["moe"], moe_spec(cfg), x, cfg.norm_eps)
+    else:
+        x = L.mlp(lp["mlp"], x, cfg.norm_eps)
     return x, nc
 
 
@@ -439,7 +497,6 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     traffic.  ``use_kernel`` runs decode attention as the port's CUDA
     kernel; Mamba layers step their O(1) recurrence in plain PyTorch, as
     the reference does.  ``unroll`` changes nothing (the port loops)."""
-    _no_moe(cfg)
     x = L.embed(params["embed"], token)
     enc_out = caches.get("enc_out")
     shared = params.get("shared")
@@ -482,7 +539,6 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (re-projected once more) in a cache of ``max_len`` slots (the window's
     for sliding-window layers) with its ``kpos``.  ``use_kernel`` runs the
     SSD scan as the port's CUDA kernel."""
-    _no_moe(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     x = L.embed(params["embed"], tokens)
@@ -556,7 +612,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     h = attn_mod.cross_attention(
                         lp["cross"], attn_spec(cfg, None, False), h, enc_out,
                         eps=cfg.norm_eps)
-                h = L.mlp(lp["mlp"], h, cfg.norm_eps)
+                if "moe" in lp:
+                    h, aa = moe_mod.moe_block(lp["moe"], moe_spec(cfg), h,
+                                              cfg.norm_eps)
+                    a = a + aa
+                else:
+                    h = L.mlp(lp["mlp"], h, cfg.norm_eps)
             caches[f"pos{i}"] = c
         if shared is not None:
             h2, c = prefill_layer({"attn": shared["attn"]}, h, None)
@@ -574,7 +635,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         for i in range(rem):
             lp = _tree_at(params["rem"], i)["pos0"]
             x, c = prefill_layer(lp, x, _window_at(cfg, i))
-            if "mamba" not in lp:
+            if "moe" in lp:
+                x, aa = moe_mod.moe_block(lp["moe"], moe_spec(cfg), x,
+                                          cfg.norm_eps)
+                aux = aux + aa
+            elif "mamba" not in lp:
                 x = L.mlp(lp["mlp"], x, cfg.norm_eps)
             rem_caches.append({"pos0": c})
         caches["rem"] = _stack(rem_caches)
@@ -588,7 +653,6 @@ def flops_estimate(cfg: ModelConfig, batch: int, seq: int,
                    kind: str = "train") -> float:
     """Analytic model FLOPs (fwd; x3 for train fwd+bwd), as the reference
     counts them."""
-    _no_moe(cfg)
     tokens = batch * seq
     total = 0.0
     for i in range(cfg.num_layers):
@@ -597,7 +661,11 @@ def flops_estimate(cfg: ModelConfig, batch: int, seq: int,
         else:
             s = attn_spec(cfg, _window_at(cfg, i))
             total += attn_mod.attn_flops(s, tokens, seq)
-            total += L.mlp_flops(cfg.d_model, cfg.d_ff, cfg.gated_mlp, tokens)
+            if cfg.moe:
+                total += moe_mod.moe_flops(moe_spec(cfg), tokens)
+            else:
+                total += L.mlp_flops(cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                     tokens)
     if cfg.family == "hybrid":
         n_units = cfg.num_layers // cfg.hybrid_unit
         s = attn_spec(cfg, None)

@@ -48,7 +48,8 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.core.pipeline",
                  "repro_torch.core.pipeline_decode",
                  "repro_torch.launch", "repro_torch.launch.mesh",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.models.moe",
+                 "repro_torch.sharding", "repro_torch.core.pipeline_ep"):
         assert want in names, want
 
 

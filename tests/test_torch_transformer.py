@@ -1,8 +1,11 @@
 """The port's LM zoo (``configs/``, ``models/transformer.py``) against the JAX
-reference on every non-moe smoke config: parameter counts, ``forward``
-logits, ``prefill`` logits and caches, ``decode_step`` from the
-reference's own caches carried over, and greedy tokens, each with
-``use_kernel`` False and True.  The decode tests also run two cases at
+reference on every smoke config, the moe family's included: parameter
+counts, ``forward`` logits (and the router's aux loss), ``prefill``
+logits and caches, ``decode_step`` from the reference's own caches
+carried over, and greedy tokens, each with ``use_kernel`` False and True;
+the moe configs' routing indices equal the reference's in every entry
+point.  ``abstract_params`` equals the reference's ``jax.eval_shape``
+tree for every full config.  The decode tests also run two cases at
 the zoo's widest attention heads (``WIDE``: gemma3-4b's hd 256,
 granite-34b's 48 query heads over one kv head), at the same tolerance.
 
@@ -36,7 +39,7 @@ torch.set_num_threads(1)
 ATOL = 2e-4
 B, S, NEW = 2, 12, 8
 ARCHS = sorted(jreg.ARCHS)
-PORTED = [a for a in ARCHS if jreg.get_smoke(a).moe is None]
+PORTED = ARCHS
 MOE = [a for a in ARCHS if jreg.get_smoke(a).moe is not None]
 # the zoo's widest attention heads at smoke width, through the decode
 # tests: gemma3-4b's 8 query over 4 kv heads of 256 (with its smoke
@@ -94,12 +97,12 @@ def _reference(arch, use_kernel):
     jkw = {k: jnp.asarray(v) for k, v in kw.items()}
     scan_k = use_kernel and cfg.ssm is not None
     attn_k = use_kernel and cfg.family != "ssm"
-    logits, _ = _j_forward(params, cfg, jnp.asarray(tokens),
-                           use_kernel=scan_k, **jkw)
+    logits, aux = _j_forward(params, cfg, jnp.asarray(tokens),
+                             use_kernel=scan_k, **jkw)
     last, caches = _j_prefill(params, cfg, jnp.asarray(tokens),
                               max_len=S + NEW, use_kernel=scan_k, **jkw)
-    out = {"forward": np.array(logits), "prefill": np.array(last),
-           "caches": _np(caches)}
+    out = {"forward": np.array(logits), "aux": float(aux),
+           "prefill": np.array(last), "caches": _np(caches)}
     # greedy decode, keeping every step's input token, logits and caches
     tok = jnp.argmax(last, -1).astype(jnp.int32)
     steps = []
@@ -200,15 +203,47 @@ def test_flops_estimate_matches_the_reference(arch):
             JT.flops_estimate(jreg.get_config(arch), 1, 4096, kind)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_abstract_params_equal_the_reference_eval_shape(arch):
+    """Every full config's tree as meta tensors, leaf for leaf the
+    reference's ``abstract_params`` (``jax.eval_shape``) in shape and
+    dtype, at its default bfloat16 and at float32; nothing is drawn
+    (dbrx-132b is 490 GiB in float32)."""
+    for jdt, tdt in ((None, None), (jnp.float32, torch.float32)):
+        want = JT.abstract_params(jreg.get_config(arch),
+                                  *([jdt] if jdt else []))
+        got = TT.abstract_params(treg.get_config(arch),
+                                 *([tdt] if tdt else []))
+        wl = [(p, tuple(a.shape), np.dtype(a.dtype).name)
+              for p, a in tree_flatten_with_path(
+                  jax.tree_util.tree_map(lambda a: a, want))]
+        gl = [(p, tuple(a.shape), str(a.dtype).removeprefix("torch."))
+              for p, a in tree_flatten_with_path(got)]
+        assert gl == wl
+        assert all(a.device.type == "meta" for _, a in
+                   tree_flatten_with_path(got))
+        assert TT.param_count(got) == treg.get_config(arch).param_count()
+
+
 @pytest.mark.parametrize("arch", MOE)
-def test_moe_raises_until_moe_is_ported(arch):
-    cfg = treg.get_smoke(arch)
-    for fn in (lambda: TT.init_lm(cfg, 0, device="cpu"),
-               lambda: TT.init_caches(cfg, 1, 8, device="cpu"),
-               lambda: TT.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32)),
-               lambda: TT.flops_estimate(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            fn()
+def test_params_from_jax_carries_a_moe_tree(arch):
+    """The reference's moe tree (router, experts' up / gate / down) comes
+    over leaf for leaf, bit for bit, the router in float32 as the
+    reference keeps it whatever the dtype."""
+    cfg, params, _, _ = _setup(arch)
+    got = TT.params_from_jax(_np(params), "cpu")
+    want = list(tree_flatten_with_path(_np(params)))
+    assert [p for p, _ in tree_flatten_with_path(got)] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(tree_flatten_with_path(got), want):
+        assert np.array_equal(g.numpy(), w), path
+    moe = got["units"]["pos0"]["moe"]
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    assert tuple(moe["up"].shape) == (cfg.num_layers, E, d, f)
+    assert tuple(moe["down"].shape) == (cfg.num_layers, E, f, d)
+    own = TT.init_lm(treg.get_smoke(arch), 0, dtype=torch.bfloat16,
+                     device="cpu")
+    assert own["units"]["pos0"]["moe"]["router"].dtype == torch.float32
+    assert own["units"]["pos0"]["moe"]["up"].dtype == torch.bfloat16
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -223,7 +258,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma3-4b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "dbrx-132b"])
 def test_init_caches_match_the_reference_tree(arch):
     got = TT.init_caches(treg.get_smoke(arch), 2, 24, device="cpu")
     want = _np(JT.init_caches(jreg.get_smoke(arch), 2, 24))
@@ -246,7 +281,10 @@ def test_forward_matches_jax(arch, use_kernel):
     want = _reference(arch, use_kernel)["forward"]
     logits, aux = TT.forward(tp, tcfg, tokens, use_kernel=use_kernel, **kw)
     assert tuple(logits.shape) == want.shape == (B, S, tcfg.padded_vocab)
-    assert float(aux) == 0.0
+    if tcfg.moe is None:
+        assert float(aux) == 0.0
+    else:                           # the router's load-balance loss
+        assert abs(float(aux) - _reference(arch, use_kernel)["aux"]) <= 1e-6
     _close(logits, want)
 
 
@@ -309,3 +347,65 @@ def test_greedy_tokens_match_jax(arch, use_kernel):
         got.append(logits.argmax(-1))
     assert min(float(m.min()) for m in margins) > 2 * ATOL
     assert [g.numpy().tolist() for g in got] == [w.tolist() for w in want]
+
+
+# -- the moe family's routing ------------------------------------------------------
+
+def _j_routing(monkeypatch) -> list:
+    """Record the indices and the router's inputs of every ``_route`` call
+    of the reference's moe module."""
+    from repro.models import moe as JM
+    seen, route = [], JM._route
+
+    def recording(p, s, h):
+        out = route(p, s, h)
+        seen.append((np.asarray(out[0]), np.asarray(h),
+                     np.asarray(p["router"]), s))
+        return out
+
+    monkeypatch.setattr(JM, "_route", recording)
+    return seen
+
+
+def _min_topk_gap(calls) -> float:
+    gaps = []
+    for _, h, router, s in calls:
+        z = h.astype(np.float64) @ router
+        p = np.exp(z - z.max(-1, keepdims=True))
+        p = np.sort(p / p.sum(-1, keepdims=True), axis=-1)[:, ::-1]
+        k = s.moe.top_k
+        gaps.append(float((p[:, k - 1] - p[:, k]).min()))
+    return min(gaps)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_routing_indices_equal_the_reference(arch, monkeypatch):
+    """``forward``, ``prefill`` and one ``decode_step`` (from the
+    reference's caches) route every token of every layer to the
+    reference's experts, index for index.  The reference runs op by op
+    (``unroll=True``) so its indices can be read; the port's are in its
+    routing log.  Smallest top-k gap of these inputs: above 1e-4 for both
+    moe smoke configs."""
+    from repro_torch.models import moe as TM
+    cfg, params, tokens, _ = _setup(arch)
+    tcfg, tp, ttok, _ = _port(arch)
+    st = _reference(arch, False)["steps"][0]       # compiled before
+    want = _j_routing(monkeypatch)
+    got = []
+    monkeypatch.setattr(TM, "routing_log", got)
+    pos = np.full((B,), S, np.int32)
+    JT.forward(params, dataclasses.replace(cfg, remat=False),
+               jnp.asarray(tokens), unroll=True)   # remat would trace
+    JT.prefill(params, cfg, jnp.asarray(tokens), max_len=S + NEW, unroll=True)
+    JT.decode_step(params, cfg, jnp.asarray(st["token"]), jnp.asarray(pos),
+                   jax.tree_util.tree_map(jnp.asarray, st["caches_in"]),
+                   unroll=True)
+    TT.forward(tp, tcfg, ttok)
+    TT.prefill(tp, tcfg, ttok, max_len=S + NEW)
+    TT.decode_step(tp, tcfg, torch.from_numpy(st["token"]),
+                   torch.from_numpy(pos),
+                   TT.caches_from_jax(st["caches_in"], "cpu"))
+    assert len(got) == len(want) == 3 * tcfg.num_layers
+    for g, (w, *_) in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert _min_topk_gap(want) > 1e-4
