@@ -140,28 +140,47 @@ Phases, each printing JSON records on their own lines:
    the relay's rounding left alone, where nothing dropped; block quant is
    held against its plain version at the relay's grid [256, 6144] and
    timed there, decode attention at dbrx's shape.
+10. slice N's path, training: StarCoder2-3B at its published widths and
+   depth (30 layers, d_model 3072, 24 query over 2 kv heads of 128, d_ff
+   12288, vocab 49152, tied embeddings; 3.03e9 parameters, f32, remat
+   "full", TF32 off) through ``launch.train.run`` for 12 steps of 8 x 128
+   tokens: every step's loss, grad norm and lr, step time p50 and tokens/s,
+   peak device memory, the device's busy share over the last two steps
+   (profiled) and its top kernels; step 0's loss against ``loss_fn``
+   without grad on the same weights and batch.  Then one
+   ``launch.steps.make_train_step`` step of a 2-layer cut at full width on
+   the card and on the CPU (loss, grad norm, every gradient, the updated
+   parameters); ``train.loop.train`` on the smoke config with the
+   reference test's settings (the loss drops by > 0.3 in 25 steps); the
+   launcher's checkpoint and resume (40 steps saved every 20, then 20 more
+   from step 40, the restored parameters bit for bit); and
+   ``forward(use_kernel=True)`` under grad raising on the card.  No kernel
+   counter may move: the training path runs no CUDA kernel of the port.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phases 4 to 9 on the CPU at small sizes (no
+``--cpu-rehearsal`` runs phases 4 to 10 on the CPU at small sizes (no
 kernel build; slice E with its head geometry kept, slice L at phi3's smoke
-config, slice M at a small width with dbrx's routing; phases 4b and 4c
-with
+config, slice M at a small width with dbrx's routing, slice N at smoke
+width; phases 4b and 4c with
 ResNet50's 1000 classes, 4c's workers on the CPU), to rehearse the
 control flow without a card; it never prints a result and exits 3.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -174,7 +193,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core.graph import (tree_flatten_with_path,  # noqa: E402
-                                    tree_leaves)
+                                    tree_leaves, tree_map)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import block_quant as bq  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -190,6 +209,13 @@ from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.core.metrics import H100  # noqa: E402
 from repro_torch.launch import serve as pipe_serve  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.data.pipeline import make_lm_iter  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train.optimizer import OptConfig, init_opt_state  # noqa: E402,E501
+from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.runtime import (ControllerConfig,  # noqa: E402
                                  DispatcherCodecs, InferenceEngine,
@@ -350,6 +376,30 @@ MOE_EP_CF, MOE_RAW_REL = 8.0, 1e-4
 MOE_PROFILE_STEPS = 4
 # the expert-parallel chain's relay grid: a microbatch's [mb*seq, d]
 MOE_GRIDS = [(256, 6144)]
+# Slice N, training (train/*, launch/steps.py, launch/train.py,
+# data/pipeline.py, transformer.loss_fn with remat): StarCoder2-3B
+# (arXiv:2402.19173) at its published widths and depth through
+# launch.train.run, f32, remat "full", TF32 off: 12 steps of 8 x 128
+# tokens, the last TRAIN_PROFILE_STEPS under the profiler.  Its step 0 loss
+# equals loss_fn without grad on the same weights and batch within 1e-5
+# relative (the same card, the same GEMMs; recompute changes no value).
+# Card against CPU: one launch.steps step of a 2-layer cut at full width
+# (the run's own weights, units 0-1) on 2 x 64 tokens: the loss and grad
+# norm within 1e-5 relative, every gradient within 1e-4 of its L2 norm
+# (f32 GEMMs summed in other orders: test_torch_loss.py's bars).  Adam's
+# first step moves a parameter by lr * x / (|x| + eps) (x the clipped
+# gradient), ~lr times its sign: where |g| is at least 10x the leaf's
+# largest card-CPU gradient difference (the sign cannot flip) and |x| at
+# least 100 eps, the two x / (|x| + eps) differ by at most 0.1 * eps / |x|
+# <= 1e-3, so the updated parameters are held within TRAIN_PARAM_ATOL
+# (lr / 1e3) there, and within 2.1 lr everywhere.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "starcoder2-3b", 12, 8, 128
+TRAIN_PROFILE_STEPS = 2
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 64
+# the reference test's drop (tests/test_train_data.py): smoke config,
+# batch 8, seq 32, lr 2e-3, warmup 3, 25 steps, loss(24) < loss(0) - 0.3
+TRAIN_DROP = 0.3
 # subnormal tiles [a, -a/2, 0.3a, 0...]: (a, q of the first 3, scale) as
 # the reference computes them (XLA reads subnormals as zero and flushes a
 # subnormal scale; a TPU has none)
@@ -2977,6 +3027,297 @@ def moe_phase(dev, cfg, card: str, cut: str | None, batch: int, prompt: int,
     return {"serve": serve_counts, "ep": ep_counts}
 
 
+# -- phase 10: training (slice N) ------------------------------------------------
+
+def _kernel_counts() -> dict:
+    """Every kernel's launch and plain-call counters, by kernel."""
+    out = {}
+    for mod in (bq, da, ssd):
+        for name, n in mod.launches.items():
+            out[f"{name}.launches"] = n
+        for name, n in mod.plain_calls.items():
+            out[f"{name}.plain_calls"] = n
+    return out
+
+
+class _StepProfiler:
+    """A ``launch.train.run`` callback: records every step's metrics and,
+    on the card, profiles the last ``n`` steps (from the callback after
+    the step before them, whose metrics synchronised the stream, to the
+    callback after the last, likewise): the device's busy share of that
+    wall time and its kernels."""
+
+    def __init__(self, dev, last_step: int, n: int):
+        self.dev, self.first, self.last = dev, last_step - n + 1, last_step
+        self.log, self.profile, self._prof = [], None, None
+
+    def __call__(self, m: dict) -> None:
+        self.log.append(m)
+        if self.dev.type != "cuda":
+            return
+        if m["step"] == self.first - 1:
+            from torch.profiler import ProfilerActivity, profile
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._t0 = time.perf_counter()
+        elif m["step"] == self.last and self._prof is not None:
+            wall_us = (time.perf_counter() - self._t0) * 1e6
+            self._prof.__exit__(None, None, None)
+            rows = _kernel_rows(self._prof)
+            busy = sum(r[0] for r in rows)
+            self.profile = {
+                "steps": self.last - self.first + 1, "wall_s": wall_us / 1e6,
+                "device_busy_s": busy / 1e6,
+                "device_busy_share": busy / wall_us if rows else None,
+                "device_kernels": sum(r[2] for r in rows),
+                "top": [{"name": k[:80], "device_ms": t / 1e3, "count": c}
+                        for t, k, c in rows[:10]]}
+            self._prof = None
+
+
+def _rel_scalar(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_launcher(dev, arch: str, smoke: bool, card: str) -> dict:
+    """Item 1: ``launch.train.run`` as a user calls it, every step logged;
+    the last TRAIN_PROFILE_STEPS profiled.  Then the run's own weights are
+    drawn again (``init_lm`` at its seed) and step 0's loss is held
+    against ``loss_fn`` without grad on its batch.  Returns those weights
+    for the card-vs-CPU step."""
+    cfg = (cfg_registry.get_smoke if smoke else cfg_registry.get_config)(arch)
+    n_params = cfg.param_count()
+    rec = _StepProfiler(dev, TRAIN_STEPS - 1, TRAIN_PROFILE_STEPS)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, hist = train_launch.run(arch, TRAIN_STEPS, TRAIN_BATCH,
+                                    TRAIN_SEQ, smoke=smoke, log_every=1,
+                                    callback=rec, device=dev)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check(hist == rec.log and [h["step"] for h in hist]
+          == list(range(TRAIN_STEPS)), "the launcher did not log every step")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), "a loss or grad norm is not finite")
+    # step times: wall_s differences, the first step (allocator, cuBLAS
+    # handles) and the profiled steps apart
+    dts = np.diff([0.0] + [h["wall_s"] for h in hist])
+    timed = dts[1:TRAIN_STEPS - TRAIN_PROFILE_STEPS]
+    p50 = float(np.median(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    if rec.profile:
+        # the profiler slows the host: the device's time per step over the
+        # unprofiled steps' p50 is the busy share without it
+        per_step = rec.profile["device_busy_s"] / rec.profile["steps"]
+        rec.profile.update(device_s_per_step=per_step,
+                           busy_share_of_p50=per_step / p50)
+    t0 = time.perf_counter()
+    w0 = transformer.init_lm(cfg, 0, device=dev)
+    redraw_s = time.perf_counter() - t0
+    batch0 = train_loop.batch_to(next(make_lm_iter(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, prefetch=0)), dev)
+    with torch.no_grad():
+        loss0, _ = transformer.loss_fn(w0, cfg, batch0)
+    loss0 = float(loss0)
+    emit(phase="train_launcher", config=cfg.name, source=cfg.source,
+         card=card, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab, tied=cfg.tie_embeddings,
+         parameters=n_params, remat=cfg.remat, remat_policy=cfg.remat_policy,
+         dtype="float32", tf32="off (cudnn and matmul)", batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         loss=[h["loss"] for h in hist],
+         grad_norm=[h["grad_norm"] for h in hist],
+         lr=[h["lr"] for h in hist], step_s=[float(d) for d in dts],
+         step_p50_s=p50, tokens_per_s=tokens / p50,
+         flops_per_step=8 * n_params * tokens, run_s=run_s,
+         redraw_s=redraw_s, peak_device_bytes=peak,
+         loss0_no_grad=loss0, loss0_rel=_rel_scalar(hist[0]["loss"], loss0),
+         profile=rec.profile)
+    check(_rel_scalar(hist[0]["loss"], loss0) <= TRAIN_LOSS_REL,
+          f"step 0's loss {hist[0]['loss']} vs loss_fn without grad {loss0}")
+    return w0
+
+
+def _leaf_errs(got, want) -> list[tuple[str, float, torch.Tensor]]:
+    """(path, ||got - want|| / ||want||, |got - want|) per leaf, on the
+    CPU."""
+    out = []
+    for (path, a), (_, b) in zip(tree_flatten_with_path(got),
+                                 tree_flatten_with_path(want)):
+        a, b = a.detach().cpu(), b.detach()
+        d = (a - b).abs()
+        out.append(("/".join(map(str, path)),
+                    float(d.norm() / b.norm().clamp_min(1e-30)), d))
+    return out
+
+
+def train_card_vs_cpu(dev, w0: dict, cfg, card: str) -> None:
+    """Item 2: one ``launch.steps.make_train_step`` step of a
+    TRAIN_CUT_LAYERS-layer cut (units 0.. of ``w0``) on ``dev`` and on the
+    CPU, the same weights and batch; the gradients from
+    ``train.loop.value_and_grad`` on the same inputs."""
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)
+    n = TRAIN_CUT_LAYERS // cfg.unit_layers
+    with torch.no_grad():
+        w = {k: (tree_map(lambda a: a[:n].clone(), v) if k == "units"
+                 else tree_map(torch.clone, v)) for k, v in w0.items()}
+    wc = tree_map(lambda a: a.detach().cpu().clone(), w)
+    batch = next(make_lm_iter(cut, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ, seed=3,
+                              prefetch=0))
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    grads = {}
+    for name, p, d in (("card", w, dev), ("cpu", wc, torch.device("cpu"))):
+        b = train_loop.batch_to(batch, d)
+        _, grads[name] = train_loop.value_and_grad(
+            lambda q: transformer.loss_fn(q, cut, b), p)
+    step = {}
+    for name, p in (("card", w), ("cpu", wc)):
+        state = init_opt_state(p)
+        t0 = time.perf_counter()
+        _, _, m = train_steps.make_train_step(cut, opt)(p, state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        m["s"] = time.perf_counter() - t0
+        step[name] = m
+    gerr = _leaf_errs(grads["card"], grads["cpu"])
+    clip = min(1.0, opt.clip_norm / max(step["cpu"]["grad_norm"], 1e-9))
+    perr, kept, total = [], 0, 0
+    for (path, _, dg), (_, g), (_, pc), (_, pg) in zip(
+            gerr, tree_flatten_with_path(grads["cpu"]),
+            tree_flatten_with_path(wc), tree_flatten_with_path(w)):
+        dp = (pg.detach().cpu() - pc.detach()).abs()
+        mask = (g.abs() >= 10 * dg.max()) & (g.abs() * clip >= 100 * opt.eps)
+        kept += int(mask.sum())
+        total += mask.numel()
+        perr.append((path, float(dp[mask].max()) if mask.any() else 0.0,
+                     float(dp.max())))
+    worst_g = max(gerr, key=lambda e: e[1])
+    worst_p = max(perr, key=lambda e: e[1])
+    emit(phase="train_card_vs_cpu", config=cut.name, layers=cut.num_layers,
+         parameters=cut.param_count(), batch=TRAIN_CUT_BATCH,
+         seq=TRAIN_CUT_SEQ, card=card,
+         loss={k: v["loss"] for k, v in step.items()},
+         grad_norm={k: v["grad_norm"] for k, v in step.items()},
+         step_s={k: v["s"] for k, v in step.items()},
+         loss_rel=_rel_scalar(step["card"]["loss"], step["cpu"]["loss"]),
+         grad_norm_rel=_rel_scalar(step["card"]["grad_norm"],
+                            step["cpu"]["grad_norm"]),
+         grad_worst={"leaf": worst_g[0], "rel_l2": worst_g[1]},
+         param_worst={"leaf": worst_p[0], "max_abs_where_held": worst_p[1],
+                      "max_abs": max(e[2] for e in perr)},
+         params_held_share=kept / max(total, 1), lr=step["card"]["lr"])
+    check(_rel_scalar(step["card"]["loss"], step["cpu"]["loss"]) <= TRAIN_LOSS_REL,
+          f"card vs CPU loss {step['card']['loss']} / {step['cpu']['loss']}")
+    check(_rel_scalar(step["card"]["grad_norm"], step["cpu"]["grad_norm"])
+          <= TRAIN_LOSS_REL, "card vs CPU grad norm")
+    check(worst_g[1] <= TRAIN_GRAD_REL,
+          f"card vs CPU gradient of {worst_g[0]}: {worst_g[1]:.3g} of its "
+          "norm")
+    check(worst_p[1] <= TRAIN_PARAM_ATOL,
+          f"card vs CPU updated {worst_p[0]}: {worst_p[1]:.3g}")
+    check(max(e[2] for e in perr) <= 2.1 * opt.lr,
+          "card vs CPU updated parameters apart by more than 2.1 lr")
+
+
+def train_loss_drops(dev) -> None:
+    """Item 3: ``train.loop.train`` with the reference test's settings."""
+    cfg = cfg_registry.get_smoke(TRAIN_ARCH)
+    opt = OptConfig(lr=2e-3, warmup_steps=3, total_steps=25)
+    t0 = time.perf_counter()
+    _, _, hist = train_loop.train(cfg, opt, make_lm_iter(cfg, 8, 32, seed=0),
+                                  25, log_every=24, device=dev)
+    emit(phase="train_loss_drop", config=cfg.name, steps=25,
+         loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"],
+         drop=hist[0]["loss"] - hist[-1]["loss"],
+         seconds=time.perf_counter() - t0)
+    check(hist[-1]["loss"] < hist[0]["loss"] - TRAIN_DROP,
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}: dropped "
+          f"less than {TRAIN_DROP}")
+
+
+def train_resume(dev) -> None:
+    """Item 4: the launcher saves every 20 steps of 40, then resumes for
+    20 more from step 40 with the saved parameters bit for bit."""
+    with tempfile.TemporaryDirectory() as d:
+        p40, _ = train_launch.run(TRAIN_ARCH, 40, 8, 32, ckpt_dir=d,
+                                  ckpt_every=20, log_every=10, device=dev)
+        saved = sorted(os.listdir(d))
+        like = transformer.abstract_params(cfg_registry.get_smoke(TRAIN_ARCH),
+                                           torch.float32)
+        back = train_ckpt.restore(d, 40, like, device=dev)
+        same = all(torch.equal(a.detach(), b) for a, b in
+                   zip(tree_leaves(p40), tree_leaves(back)))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, hist = train_launch.run(TRAIN_ARCH, 20, 8, 32, ckpt_dir=d,
+                                       log_every=1, device=dev)
+        sys.stdout.write(out.getvalue())
+        after = sorted(os.listdir(d))
+    emit(phase="train_resume", saved=saved, after=after,
+         restored_bit_for_bit=same,
+         resumed="resumed from step 40" in out.getvalue(),
+         logged=[h["step"] for h in hist])
+    check(saved == ["step_20", "step_40"], f"checkpoints {saved}")
+    check(same, "restored parameters differ from the saved ones")
+    check("resumed from step 40" in out.getvalue(),
+          "the second run did not resume from step 40")
+    check([h["step"] for h in hist] == list(range(40, 60)),
+          "the resumed run did not log steps 40-59")
+    check(after == ["step_20", "step_40", "step_60"], f"then {after}")
+
+
+def train_refuses_kernel_grad(dev) -> None:
+    """Item 5: ``forward(use_kernel=True)`` under grad on the card
+    raises: the SSD kernel has no backward and no plain fallback."""
+    cfg = cfg_registry.get_smoke("mamba2-2.7b")
+    p = transformer.init_lm(cfg, 0, device=dev)
+    p["units"]["pos0"]["mamba"]["in_proj"].requires_grad_(True)
+    toks = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    try:
+        transformer.forward(p, cfg, toks, use_kernel=True)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        msg = None
+    emit(phase="train_kernel_grad", raised=msg)
+    check(msg is not None and "no backward" in msg,
+          "forward(use_kernel=True) under grad returned on the card")
+
+
+def train_phase(dev, smoke: bool, card: str) -> dict:
+    """Slice N's path (phase 10): items 1-5 above, TF32 off; returns the
+    kernels' counters before and after (they must not move)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    before = _kernel_counts()
+    w0 = train_launcher(dev, TRAIN_ARCH, smoke, card)
+    cfg = (cfg_registry.get_smoke if smoke
+           else cfg_registry.get_config)(TRAIN_ARCH)
+    train_card_vs_cpu(dev, w0, cfg, card)
+    del w0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    train_loss_drops(dev)
+    train_resume(dev)
+    if dev.type == "cuda":
+        train_refuses_kernel_grad(dev)
+    after = _kernel_counts()
+    emit(phase="train", card=card, kernel_counts_before=before,
+         kernel_counts_after=after, phase_s=time.perf_counter() - t_phase)
+    check(after == before, "a kernel counter moved during the training "
+                           "phase")
+    return {"before": before, "after": after}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -3016,6 +3357,9 @@ def main() -> int:
             dbrx_132b.CONFIG, num_layers=4, num_heads=8, kv_heads=4,
             moe=dbrx_132b.CONFIG.moe), "cpu rehearsal", "smoke widths", 2,
             64, 6, 80, (MOE_EP_REQUESTS, MOE_EP_SEQ, MOE_EP_M))
+        # slice N at smoke width: the launcher, CPU against CPU, the loss
+        # drop and the resume (the kernel refusal needs the card)
+        train_phase(torch.device("cpu"), True, "cpu rehearsal")
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -3116,6 +3460,11 @@ def main() -> int:
               f"{moe['ep']['want']}")
         check(moe["ep"]["plain"][name] == 0,
               f"{name} ran its plain version on the expert-parallel chain")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train_phase(dev, False, card)
+    emit(phase="train_phase_done", seconds=time.perf_counter() - t_train)
     gc.collect()
     torch.cuda.empty_cache()
     times = time_kernels(dev, SWEEP + PIPE_GRIDS + MOE_GRIDS)

@@ -15,7 +15,8 @@ crosses PCIe unpadded).
 
 A wrapper given a CPU tensor runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`); given a CUDA tensor it launches the
-kernel or raises.  ``launches`` counts kernel launches only, by kernel;
+kernel or raises (as it does under autograd: the kernels have no
+backward).  ``launches`` counts kernel launches only, by kernel;
 ``plain_calls`` counts the CPU path.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import get_device
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, refuse_grad
 
 TILE_R, TILE_C = ref.TILE_R, ref.TILE_C
 TILE = TILE_R * TILE_C
@@ -71,6 +72,7 @@ def _check_grid(t: torch.Tensor, what: str) -> tuple[int, int]:
 
 
 def _check_cuda(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
+    refuse_grad(what, t)
     if t.device.type != "cuda":
         raise ValueError(f"{what}: tensor on {t.device}, want cuda or cpu")
     if t.dtype != dtype:

@@ -23,7 +23,8 @@ multiple of 8.
 
 A wrapper given CPU tensors runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`); given CUDA tensors
-it launches the kernel or raises.  ``launches`` counts kernel launches
+it launches the kernel or raises (as it does under autograd with an input
+that requires grad: the kernel has no backward).  ``launches`` counts kernel launches
 only, and ``launches_by_shape`` the same launches by (B, H, kv, hd, C);
 ``plain_calls`` counts the CPU path.
 """
@@ -33,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, refuse_grad
 
 BLOCK_C = 32          # cache slots per shared-memory tile (csrc kTile)
 SPLIT_C = 256         # cache slots per CTA, register and shared-memory forms
@@ -145,6 +146,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k[:, :live], v[:, :live],
                                         kpos[:, :live], pos, window,
                                         scale).to(q.dtype)
+    refuse_grad("decode_attention", *tensors)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("decode_attention: tensors on "

@@ -14,7 +14,8 @@ launches five CUDA kernels and counts as one launch.
 The wrapper checks shapes, dtypes and contiguity whatever the device.
 Given CPU tensors it then runs the plain PyTorch version
 (:func:`repro_torch.kernels.ref.ssd_scan_ref`); given CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches only;
+launches the kernel or raises (as it does under autograd with an input
+that requires grad: the kernel has no backward).  ``launches`` counts kernel launches only;
 ``plain_calls`` counts the CPU path.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, refuse_grad
 
 MAX_Q = 256           # chunk length (csrc kMaxQ)
 MAX_P = 64            # head_dim (csrc kMaxP)
@@ -93,6 +94,7 @@ def ssd_scan(xc: torch.Tensor, dtc: torch.Tensor, A: torch.Tensor,
     if all(t.device.type == "cpu" for t in tensors):
         plain_calls["ssd_scan"] += 1
         return ref.ssd_scan_ref(xc, dtc, A, Bc, Cc, init_state)
+    refuse_grad("ssd_scan", *tensors)
     dev = xc.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("ssd_scan: tensors on "

@@ -5,9 +5,16 @@ it as one SPMD program.  The port has no SPMD mesh: its pipeline is one
 process that drives every stage itself (:mod:`repro_torch.core.pipeline`),
 so a mesh here is only which device each stage runs on.
 
+The trainer's mesh is the reference's data x model mesh over the
+devices there are (``make_host_mesh(model)`` there): here
+:class:`DeviceMesh` over the one card, built by
+:func:`make_data_model_mesh`, whose axes are both of size 1 (an axis of
+size > 1 raises: a mesh of several cards is left over in ROADMAP
+queue 1).
+
 ``make_mesh_compat`` and ``make_production_mesh`` are the reference's TPU
 mesh shapes for the dry run (``launch/dryrun.py``); they come with its port
-(ROADMAP queue 1 item 13) and are not here.
+(ROADMAP queue 1 item 13.3) and are not here.
 """
 from __future__ import annotations
 
@@ -64,3 +71,37 @@ def make_host_mesh(num_stages: int = 1,
     :func:`repro_torch.device.get_device`'s (CPU tests and smoke runs)."""
     return make_pipeline_mesh(num_stages, [get_device(device)],
                               expert_shards)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """A named-axis mesh of devices, as a JAX mesh: ``shape`` maps axis
+    name -> size and ``axis_names`` orders them.  The port holds one
+    device, so every axis is of size 1."""
+    device: torch.device
+    axis_names: tuple[str, ...] = ("data", "model")
+    sizes: tuple[int, ...] = (1, 1)
+
+    def __post_init__(self):
+        if len(self.sizes) != len(self.axis_names):
+            raise ValueError(f"sizes {self.sizes} do not name the axes "
+                             f"{self.axis_names}")
+        if any(n != 1 for n in self.sizes):
+            raise NotImplementedError(
+                f"mesh {dict(zip(self.axis_names, self.sizes))}: an axis "
+                "of size > 1 needs several cards (ROADMAP queue 1, left "
+                "over: a mesh of several cards); the port's mesh is one "
+                "device")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_data_model_mesh(model: int | None = None,
+                         device: str | torch.device | None = None
+                         ) -> DeviceMesh:
+    """The trainer's ("data", "model") mesh over the one device (the
+    reference's ``make_host_mesh(model)``): ``device``, or
+    :func:`repro_torch.device.get_device`'s.  ``model`` > 1 raises."""
+    return DeviceMesh(get_device(device), sizes=(1, model or 1))

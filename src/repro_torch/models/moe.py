@@ -28,10 +28,12 @@ dispatch made and dropped; the drop counts stay on the device.  While
 [T, k] to it, in dispatch order.  Tests and ``chip_smoke.py`` read them to
 know where two runs may rightly differ (another token count, so another
 capacity; a lossy relay that moves a routing decision); they change no
-result.
+result.  A unit's forward run again by activation checkpointing records
+nothing (``recording_off``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -73,14 +75,30 @@ def moe_param_count(s: MoESpec) -> int:
 
 dispatch_record: dict[tuple[int, int], dict] = {}
 routing_log: list | None = None
+_recording = True
 
 
 def reset_dispatch_record() -> None:
     dispatch_record.clear()
 
 
+@contextlib.contextmanager
+def recording_off():
+    """Dispatches inside record nothing: the transformer's activation
+    checkpointing runs a unit's forward again in the backward pass, and
+    that recomputation is not a dispatch of its own."""
+    global _recording
+    prev, _recording = _recording, False
+    try:
+        yield
+    finally:
+        _recording = prev
+
+
 def _record(tokens: int, capacity: int, idx: torch.Tensor,
             keep: torch.Tensor, dispatches: int = 1) -> None:
+    if not _recording:
+        return
     if routing_log is not None:
         routing_log.append(idx)
     r = dispatch_record.setdefault((tokens, capacity), {

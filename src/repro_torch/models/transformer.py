@@ -18,9 +18,13 @@ single-layer units.  The reference scans the units with ``lax.scan``; the
 port loops over the unit axis in Python.
 
 Entry points:
-  ``forward``      prefill logits (+ aux loss, 0 without MoE)
+  ``forward``      train/prefill logits (+ aux loss, 0 without MoE)
+  ``loss_fn``      next-token cross entropy (+ router aux) for training
   ``prefill``      forward + KV/SSM caches for subsequent decode
   ``decode_step``  one token through all layers with caches (serve step)
+
+Under autograd, ``cfg.remat`` runs each unit under activation
+checkpointing, as the reference's ``jax.checkpoint`` over its scan body.
 
 ``init_lm`` and ``init_caches`` create tensors on the device that
 :func:`repro_torch.device.get_device` resolves (CUDA unless the caller
@@ -34,6 +38,7 @@ states can be stepped by the port.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -265,17 +270,66 @@ def param_count(params) -> int:
 
 # -- apply -------------------------------------------------------------------------
 
+def _unbind(tree) -> list:
+    """The stacked tree split once along its unit axis: one tree of views
+    per unit.  Under autograd the split's backward is one ``stack``, where
+    indexing the stack once per unit would add a zero-filled gradient as
+    large as the whole stack for every unit."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+# what the "dots" policy keeps from a unit's forward: every matmul output
+# (``jax.checkpoint_policies.dots_saveable``); the rest is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _checkpointed(body, remat_policy: str):
+    """``body`` under activation checkpointing: "full" saves nothing of
+    a unit's forward but its inputs, "dots" also its matmul outputs.  The
+    forward that checkpointing runs again in the backward pass records no
+    moe dispatch."""
+    if remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {remat_policy!r}: 'full' or 'dots'")
+    from torch.utils import checkpoint as ckpt
+    context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    list(_DOTS))
+                  if remat_policy == "dots" else ckpt.noop_context_fn)
+
+    def run(carry, up):
+        calls = []
+
+        def once(carry, up):
+            calls.append(None)
+            if len(calls) == 1:
+                return body(carry, up)
+            with moe_mod.recording_off():
+                return body(carry, up)
+
+        return ckpt.checkpoint(once, carry, up, use_reentrant=False,
+                               context_fn=context_fn)
+
+    return run
+
+
 def _scan_units(body, carry, units, remat: bool = False, unroll: bool = False,
                 remat_policy: str = "full"):
     """Run ``body`` over the stacked-unit axis: ``lax.scan`` in the
-    reference, a Python loop here whatever ``unroll`` says.  ``remat`` and
-    ``remat_policy`` choose what the reference recomputes in its backward
-    pass; the port has no backward pass, so they change nothing."""
-    del remat, unroll, remat_policy
-    n = tree_leaves(units)[0].shape[0]
+    reference, a Python loop here whatever ``unroll`` says.  With
+    ``remat`` and grad enabled each unit runs under activation
+    checkpointing (``remat_policy`` says what it keeps), as the
+    reference's ``jax.checkpoint`` does; without grad nothing is kept
+    for a backward pass anyway, and the body runs as it is."""
+    del unroll
+    if remat and torch.is_grad_enabled():
+        body = _checkpointed(body, remat_policy)
     ys = []
-    for i in range(n):
-        carry, y = body(carry, _tree_at(units, i))
+    for up in _unbind(units):
+        carry, y = body(carry, up)
         ys.append(y)
     if ys and ys[0] is not None:
         return carry, _stack(ys)
@@ -386,10 +440,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                               remat_policy=cfg.remat_policy)
 
     _, rem = _unit_count(cfg)
-    for i in range(rem):
-        up = _tree_at(params["rem"], i)
-        x, aux = _apply_layer(up["pos0"], cfg, x, positions, aux,
-                              _window_at(cfg, i), enc_out, use_kernel)
+    if rem:
+        for i, up in enumerate(_unbind(params["rem"])):
+            x, aux = _apply_layer(up["pos0"], cfg, x, positions, aux,
+                                  _window_at(cfg, i), enc_out, use_kernel)
     return _logits(params, cfg, x), aux
 
 
@@ -401,6 +455,24 @@ def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     return torch.where(ids < cfg.vocab, logits,
                        torch.tensor(NEG_INF, dtype=logits.dtype,
                                     device=logits.device))
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, use_kernel=False,
+            unroll=False):
+    """Next-token cross entropy over the labels >= 0 (+ the router's aux
+    loss times ``router_aux_weight`` for moe) -> (loss, {"nll", "aux"}).
+    A negative label is masked out; it is clamped to 0 before the gather,
+    since a gather at -1 is a device-side assert on CUDA."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          batch.get("prefix_embeds"),
+                          batch.get("encoder_embeds"), use_kernel, unroll)
+    labels = batch["labels"]
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return loss + w * aux, {"nll": loss, "aux": aux}
 
 
 # -- caches / decode -------------------------------------------------------------

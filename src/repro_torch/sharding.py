@@ -15,16 +15,20 @@ A spec is a :class:`P`, a tuple with one entry per leading dim (an axis
 name, a tuple of names, or None).  A mesh is anything with ``shape`` (axis
 name -> size) and ``axis_names``.  The leaves may be tensors of any device
 (``transformer.abstract_params``' meta tensors included): only their
-shapes are read.  ``param_shardings`` and ``batch_shardings``, which bind
-the specs to a mesh of devices, come with the dry-run launcher's port
-(ROADMAP queue 1 item 13); the stage pipeline shards its expert axis with
+shapes are read.  ``param_shardings`` and ``batch_shardings`` bind the
+specs to a :class:`repro_torch.launch.mesh.DeviceMesh` as
+:class:`NamedSharding` objects, and :func:`device_put` places a tree by them:
+on the one card every spec places the whole leaf on the mesh's device.
+The stage pipeline shards its expert axis with
 :func:`repro_torch.core.pipeline_ep._ep_weight_specs`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core.graph import tree_map, tree_map_with_path
 
@@ -135,6 +139,43 @@ def batch_pspecs(batch: Any, mesh) -> Any:
     axes = tuple(a for a in mesh.axis_names if a != "model")
     return tree_map(lambda leaf: P(axes, *([None] * (len(leaf.shape) - 1))),
                     batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh (``jax.sharding.NamedSharding``)."""
+    mesh: Any
+    spec: P
+
+
+def _bind(mesh, specs: Any) -> Any:
+    if isinstance(specs, dict):
+        return {k: _bind(mesh, v) for k, v in specs.items()}
+    return NamedSharding(mesh, specs)
+
+
+def param_shardings(params: Any, mesh, model_axis: str = "model") -> Any:
+    specs = param_pspecs(params, model_axis,
+                         model_size=mesh.shape[model_axis])
+    return _bind(mesh, specs)
+
+
+def batch_shardings(batch: Any, mesh) -> Any:
+    return _bind(mesh, batch_pspecs(batch, mesh))
+
+
+def device_put(tree: Any, shardings: Any) -> Any:
+    """Every leaf of ``tree`` (tensor or numpy array) on its sharding's
+    mesh device: the whole leaf, as a mesh whose axes are all of size 1
+    lays it (a leaf already there is returned as it is)."""
+    if isinstance(shardings, NamedSharding):
+        if any(n != 1 for n in shardings.mesh.shape.values()):
+            raise NotImplementedError(
+                f"device_put over mesh {shardings.mesh.shape}: the port "
+                "places leaves on one device (ROADMAP queue 1, left over: "
+                "a mesh of several cards)")
+        return torch.as_tensor(tree).to(shardings.mesh.device)
+    return {k: device_put(tree[k], v) for k, v in shardings.items()}
 
 
 def opt_state_pspecs(params: Any, model_axis: str = "model") -> Any:

@@ -351,33 +351,63 @@ def test_priority_submit_end_to_end():
 
 # -- bucketed pad-to-shape (heterogeneous trailing shapes) -------------------
 
+def _stalled_pair(eng, node, shapes):
+    """Deterministically land ``shapes``' requests in ONE compute merge
+    (the reference's ``tests/test_topology.py::_stalled_pair``): a plug
+    request provably occupies the gated apply first (so it cannot absorb
+    them), the pair is decoded into the compute queue behind it, and the
+    gate opens only once every pair extent is queued; the next merge then
+    drains them together.  Returns the pair's futures."""
+    gate = threading.Event()
+    entered = threading.Event()
+    orig = node._apply
+
+    def gated(b):
+        entered.set()
+        gate.wait(timeout=60)
+        return orig(b)
+
+    node._apply = gated
+    try:
+        plug = eng.submit(sample(39, (1, 3, D)))
+        assert entered.wait(timeout=60)     # compute thread is inside apply
+        futs = [eng.submit(sample(40 + i, s)) for i, s in enumerate(shapes)]
+
+        def decoded_parts():                # pair extents decoded and queued
+            return sum(len(d.extents) for w in list(node._to_compute.queue)
+                       if isinstance(w, list) for d in w)
+
+        deadline = time.perf_counter() + 10
+        while decoded_parts() < len(shapes) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        assert decoded_parts() == len(shapes)
+    finally:
+        gate.set()
+    plug.result(timeout=60)
+    return futs
+
+
 def test_pow2_buckets_merge_near_miss_shapes():
     """(1, 5, D) and (1, 7, D) pad to (1, 8, D), merge into ONE apply and
     ONE encode, and come back trimmed to their original shapes with
-    per-request reference numerics."""
+    per-request reference numerics.  The pair is stalled behind a plug
+    request until both are in the compute queue, so the merge does not
+    depend on thread timing."""
     g = mlp_graph(6, rank3=True)
     params = g.init(0)
     eng = InferenceEngine(g, 2, RAW, max_batch=8, shape_buckets="pow2",
                           device="cpu")
     eng.configure(params)
-    gate = threading.Event()
     node0 = eng.dispatcher.nodes[0]
-    orig = node0._apply
-    node0._apply = lambda b: (gate.wait(timeout=60), orig(b))[1]
-    xs = [sample(1, (1, 5, D)), sample(2, (1, 7, D))]
+    shapes = [(1, 5, D), (1, 7, D)]
     try:
-        futs = [eng.submit(x) for x in xs]
-        deadline = time.perf_counter() + 10
-        while (node0._to_compute.qsize() < 1
-               and time.perf_counter() < deadline):
-            time.sleep(0.01)
-        time.sleep(0.2)
-        gate.set()
+        futs = _stalled_pair(eng, node0, shapes)
         outs = [f.result(timeout=120) for f in futs]
     finally:
-        gate.set()
         eng.shutdown()
-    for x, out in zip(xs, outs):
+    for i, (shape, out) in enumerate(zip(shapes, outs)):
+        x = sample(40 + i, shape)
         assert out.shape == x.shape            # trimmed back, not padded
         np.testing.assert_allclose(out, reference(g, params, x), atol=1e-5)
     merged = max(node0.traces, key=lambda t: t.n)

@@ -49,7 +49,11 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.core.pipeline_decode",
                  "repro_torch.launch", "repro_torch.launch.mesh",
                  "repro_torch.launch.serve", "repro_torch.models.moe",
-                 "repro_torch.sharding", "repro_torch.core.pipeline_ep"):
+                 "repro_torch.sharding", "repro_torch.core.pipeline_ep",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.loop", "repro_torch.train.checkpoint",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert want in names, want
 
 
