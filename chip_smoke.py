@@ -116,9 +116,14 @@ Phases, each printing JSON records on their own lines:
    decodes 4 microbatches of 2 for 16 greedy steps: every token equal to
    the single-device greedy ``decode_step`` loop up to a step whose
    top-1/top-2 margin is under 1e-2, and compressed, the kernels' tokens
-   equal the plain codec's; block quant is also held against its plain
-   version at the relay's grids ([256, 3072] and [8, 3072]) and timed
-   there;
+   equal the plain codec's; the prefill again in 2 chains
+   (``data_axes=("data",)`` over a mesh of data 2: each chain 2 rows of
+   every microbatch), raw within 1e-4 and compressed within 0.15 of the
+   forward, 2 * M * (S - 1) launches a compressed call, and the
+   compressed chains' stream bit for bit each chain run alone through
+   the plain codec; block quant is also held against its plain version
+   at the relay's grids ([256, 3072], a chain's [128, 3072] and
+   [8, 3072]) and timed there;
 9. slice M's path, the moe family: dbrx-132b at its published widths (d_model
    6144, 48 query over 8 kv heads of 128, 16 experts top-4 at capacity
    factor 1.25, d_ff 10752 gated, vocab 100352, f32, seeded fan-in
@@ -137,9 +142,13 @@ Phases, each printing JSON records on their own lines:
    ``forward``; at 8.0 and 1.25 the relay through the block-quant kernels
    bit for bit the plain codec's, M * (S - 1) launches a call and no plain
    call, and within 0.15 of ``forward`` at every token whose expert set
-   the relay's rounding left alone, where nothing dropped; block quant is
-   held against its plain version at the relay's grid [256, 6144] and
-   timed there, decode attention at dbrx's shape.
+   the relay's rounding left alone, where nothing dropped; then the raw
+   chain in 2 chains at 8.0 (each shard dispatching 64 tokens a
+   microbatch) within 1e-4 of ``forward``, and compressed, 2 * M * (S - 1)
+   launches, bit for bit each chain run alone through the plain codec;
+   block quant is held against its plain version at the relay's grids
+   [256, 6144] and a chain's [128, 6144] and timed there, decode
+   attention at dbrx's shape.
 10. slice N's path, training: StarCoder2-3B at its published widths and
    depth (30 layers, d_model 3072, 24 query over 2 kv heads of 128, d_ff
    12288, vocab 49152, tied embeddings; 3.03e9 parameters, f32, remat
@@ -156,14 +165,21 @@ Phases, each printing JSON records on their own lines:
    from step 40, the restored parameters bit for bit); and
    ``forward(use_kernel=True)`` under grad raising on the card.  No kernel
    counter may move: the training path runs no CUDA kernel of the port.
+11. the dry run (``launch/dryrun.py``), on the ``meta`` device: slice N's
+   own step (StarCoder2-3B, 8 x 128 tokens, f32, remat "full") traced on
+   the one-card mesh, its predicted peak (argument + temp bytes) within
+   10 % of phase 10's measured ``max_memory_allocated``; then
+   ``dryrun_pair("starcoder2-3b", "prefill_32k")`` on the reference's
+   16x16 and 2x16x16 meshes, status "ok" and FLOPs > 1e9.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.
-``--cpu-rehearsal`` runs phases 4 to 10 on the CPU at small sizes (no
+``--cpu-rehearsal`` runs phases 4 to 11 on the CPU at small sizes (no
 kernel build; slice E with its head geometry kept, slice L at phi3's smoke
 config, slice M at a small width with dbrx's routing, slice N at smoke
-width; phases 4b and 4c with
+width, the dry run's step at smoke width without the peak's bar (nothing
+measured) and its two full-size pairs; phases 4b and 4c with
 ResNet50's 1000 classes, 4c's workers on the CPU), to rehearse the
 control flow without a card; it never prints a result and exits 3.
 """
@@ -208,6 +224,7 @@ from repro_torch.models import cnn, lm_graph, transformer  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.core.metrics import H100  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as pipe_serve  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
@@ -216,7 +233,8 @@ from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.optimizer import OptConfig, init_opt_state  # noqa: E402,E501
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
+                                     make_mesh_compat)
 from repro_torch.runtime import (ControllerConfig,  # noqa: E402
                                  DispatcherCodecs, InferenceEngine,
                                  TopologySpec, WireCodec)
@@ -344,11 +362,15 @@ ZOO_STEP_ATOL, ZOO_MARGIN = 1e-3, 1e-2
 PIPE_STAGES, PIPE_REQUESTS, PIPE_SEQ, PIPE_M = 4, 32, 64, 8
 PIPE_DEC_M, PIPE_DEC_MB, PIPE_DEC_MAX_LEN, PIPE_DEC_STEPS = 4, 2, 128, 16
 PIPE_RAW_REL, PIPE_MARGIN = 1e-4, 1e-2
+# several chains (the reference's data axis): the prefill again in 2
+# chains, each over 2 of every microbatch's 4 rows; a compressed call
+# quantizes 2 * M * (S - 1) = 48 relays of [128, 3072]
+PIPE_CHAINS = 2
 PIPE_PROFILE_STEPS = 4      # the profiled decode run's steps
 # the relay's block-quant grids at those sizes: a prefill microbatch's
-# [mb*seq, d] = [256, 3072] (no padding) and a decode step's [2, 3072]
-# padded to 8 rows
-PIPE_GRIDS = [(256, 3072), (8, 3072)]
+# [mb*seq, d] = [256, 3072] (no padding), a chain's half of it [128, 3072]
+# and a decode step's [2, 3072] padded to 8 rows
+PIPE_GRIDS = [(256, 3072), (128, 3072), (8, 3072)]
 # Slice M, the moe family (models/moe.py, core/pipeline_ep.py, sharding.py):
 # dbrx-132b (hf:databricks/dbrx-base; src/repro_torch/configs/dbrx_132b.py)
 # at its published widths (d_model 6144, 48 query over 8 kv heads of 128,
@@ -373,9 +395,15 @@ MOE_BATCH, MOE_PROMPT, MOE_STEPS, MOE_MAX_LEN = 4, 512, 16, 544
 MOE_EP_STAGES, MOE_EP_SHARDS, MOE_EP_REQUESTS, MOE_EP_SEQ, MOE_EP_M = \
     2, 2, 8, 128, 4
 MOE_EP_CF, MOE_RAW_REL = 8.0, 1e-4
+# the chain again in 2 chains at cf 8.0: each of a chain's 2 shards
+# dispatches 64 tokens a microbatch (1 row of 128 over 2 shards); raw
+# against forward, compressed (2 * M * (S - 1) = 8 relays of [128, 6144])
+# bit for bit each chain alone through the plain codec
+MOE_EP_CHAINS = 2
 MOE_PROFILE_STEPS = 4
-# the expert-parallel chain's relay grid: a microbatch's [mb*seq, d]
-MOE_GRIDS = [(256, 6144)]
+# the expert-parallel chain's relay grids: a microbatch's [mb*seq, d] and
+# a chain's half of it
+MOE_GRIDS = [(256, 6144), (128, 6144)]
 # Slice N, training (train/*, launch/steps.py, launch/train.py,
 # data/pipeline.py, transformer.loss_fn with remat): StarCoder2-3B
 # (arXiv:2402.19173) at its published widths and depth through
@@ -397,6 +425,9 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "starcoder2-3b", 12, 8, 128
 TRAIN_PROFILE_STEPS = 2
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 64
+# the dry run's predicted peak of slice N's step against the train
+# phase's measured one
+DRYRUN_PEAK_REL = 0.10
 # the reference test's drop (tests/test_train_data.py): smoke config,
 # batch 8, seq 32, lr 2e-3, warmup 3, 25 steps, loss(24) < loss(0) - 0.3
 TRAIN_DROP = 0.3
@@ -716,7 +747,10 @@ def _call_ms(fn, args_list, iters: int = 200) -> float:
 def _device_ms(fn, args_list, reps: int = 10) -> float:
     """Device time per call of ``fn(*args)``: up to 64 calls over distinct
     buffers captured into one CUDA graph and replayed, so the host's
-    launch path is out of the measurement."""
+    launch path is out of the measurement.  Every captured call's output
+    is kept until the graph is built, so each call writes a buffer of its
+    own (a dropped output's memory would go back to the graph's pool and
+    serve the next call, one buffer that stays in L2)."""
     k = min(len(args_list), 64)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -727,8 +761,7 @@ def _device_ms(fn, args_list, reps: int = 10) -> float:
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for a in args_list[:k]:
-            fn(*a)
+        outs = [fn(*a) for a in args_list[:k]]
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -739,7 +772,7 @@ def _device_ms(fn, args_list, reps: int = 10) -> float:
     stop.record()
     stop.synchronize()
     ms = start.elapsed_time(stop) / (reps * k)
-    del graph
+    del graph, outs
     return ms
 
 
@@ -2623,7 +2656,10 @@ def pipeline_phase(dev, cfg, card: str) -> dict:
              forward_s=fwd_s, forward_tokens_per_s=B * seq / fwd_s[-1],
              kernel_equals_plain=same, raw_tol=PIPE_RAW_REL,
              compressed_tol=ZFP_REL, **res)
-        del outs, ref_logits
+        del outs
+        chain_launches = pipeline_chains(dev, cfg, params, tokens, ref_logits,
+                                         res, card)
+        del ref_logits
         if cuda:
             res["prefill_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
@@ -2681,13 +2717,102 @@ def pipeline_phase(dev, cfg, card: str) -> dict:
               f"{match['worst_margin_at_divergence']}")
         check(same_dec, "compressed decode: kernel codec tokens != plain")
     counts, plain = dict(bq.launches), dict(bq.plain_calls)
-    want = 2 * M * (S - 1) + PIPE_DEC_M * PIPE_DEC_STEPS * (S - 1)
+    want = 2 * M * (S - 1) + chain_launches \
+        + PIPE_DEC_M * PIPE_DEC_STEPS * (S - 1)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     emit(phase="pipeline", config=cfg.name, card=card, launches=counts,
          plain_calls=plain, launches_want=want, peak_device_bytes=peak,
          phase_s=time.perf_counter() - t_phase)
     del params
     return {"counts": counts, "plain": plain, "want": want}
+
+
+def pipeline_chains(dev, cfg, params, tokens, ref_logits, one: dict,
+                    card: str) -> int:
+    """The launcher's prefill again with PIPE_CHAINS chains
+    (``build_pipeline_lm(..., data_axes=("data",))`` over a mesh of data
+    PIPE_CHAINS), each over ``mb / D`` rows of every microbatch: raw and
+    compressed through the block-quant kernels, each run cold then warm,
+    against ``forward`` (``ref_logits``); then the compressed chains'
+    output stream against each chain run alone (one chain over its rows)
+    through the plain codec, bit for bit.  ``one`` is the one-chain
+    figures.  Returns the block-quant launches the calls make."""
+    cuda = dev.type == "cuda"
+    S, M, B, seq, D = PIPE_STAGES, PIPE_M, PIPE_REQUESTS, PIPE_SEQ, \
+        PIPE_CHAINS
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(S, dev, data=D)
+    per_call = D * M * (S - 1)
+    res, lms, launched = {}, {}, 0
+
+    def counted(fn, name, want):
+        before = dict(bq.launches), dict(bq.plain_calls)
+        out, s_ = _pipe_run(fn, dev)
+        for kname in bq.launches:
+            got = (bq.launches[kname] - before[0][kname],
+                   bq.plain_calls[kname] - before[1][kname])
+            check(got == ((want, 0) if cuda else (0, want)),
+                  f"pipeline {D} chains {name}: {kname} launches / plain "
+                  f"calls {got}, want {want}")
+        return out, s_
+
+    for name, compress in (("raw", False), ("kernel", True)):
+        lm = pipe_serve.build_pipeline_lm(cfg, params, mesh, S, M,
+                                          compress=compress,
+                                          data_axes=("data",))
+        want = per_call if compress else 0
+        secs = []
+        for _ in range(2):          # cold, then warm
+            out, s_ = counted(lambda: lm(tokens), name, want)
+            secs.append(s_)
+            launched += want
+        check(bool(torch.isfinite(out).all()),
+              f"pipeline {D} chains {name}: logits not finite")
+        logs = lm.fn.chain_logs
+        res[name] = dict(
+            seconds=secs, tokens_per_s=B * seq / secs[-1],
+            one_chain_tokens_per_s=one[name]["tokens_per_s"],
+            rel_err_vs_forward=_rel_err(out, ref_logits),
+            relays_per_chain=[g.relays for g in logs],
+            encoded_per_chain=[g.encoded for g in logs],
+            relay_wire_bytes_per_chain=[g.wire_bytes // max(g.relays, 1)
+                                        for g in logs],
+            launches_per_call=want)
+        lms[name] = lm
+        del out
+    check(res["raw"]["rel_err_vs_forward"] <= PIPE_RAW_REL,
+          f"{D}-chain raw pipeline vs forward: "
+          f"{res['raw']['rel_err_vs_forward']}")
+    check(res["kernel"]["rel_err_vs_forward"] <= ZFP_REL,
+          f"{D}-chain compressed pipeline vs forward: "
+          f"{res['kernel']['rel_err_vs_forward']}")
+    # the compressed chains' stream, each chain's rows against that chain
+    # run alone through the plain codec
+    lm = lms["kernel"]
+    mb = B // M
+    stream = lm_layers.embed(params["embed"], tokens).reshape(M, mb, seq, -1)
+    both, _ = counted(lambda: lm.fn(lm.stage_params, stream), "stream",
+                      per_call)
+    launched += per_call
+    alone = pipe_serve.build_pipeline_lm(cfg, params, make_host_mesh(S, dev),
+                                         S, M, compress=True,
+                                         quant_impl="plain")
+    h = mb // D
+    same = []
+    for g in range(D):
+        y, _ = counted(lambda: alone.fn(alone.stage_params,
+                                        stream[:, g * h:(g + 1) * h]),
+                       f"chain {g} alone", 0)
+        same.append(bool(torch.equal(both[:, g * h:(g + 1) * h], y)))
+    emit(phase="pipeline_chains", config=cfg.name, card=card, chains=D,
+         rows_per_chain=h, microbatches=M, requests=B, seq=seq,
+         relay_grid=[h * seq, cfg.d_model],
+         launches_per_compressed_call=per_call,
+         each_chain_equals_plain_alone=same, raw_tol=PIPE_RAW_REL,
+         compressed_tol=ZFP_REL, phase_s=time.perf_counter() - t0, **res)
+    check(all(same), f"{D}-chain compressed stream != each chain alone "
+                     f"through the plain codec: {same}")
+    return launched
 
 
 # -- phase 9: slice M's path, the moe family ---------------------------------------
@@ -2890,7 +3015,7 @@ def moe_ep_chain(dev, cfg, params, card: str, requests: int, seq: int,
          relay_grid=[mb * seq, cfg.d_model], stage_weights_are_views=views,
          devices=[str(d) for d in mesh.devices])
 
-    def chain(c, compress, impl):
+    def chain(c, compress, impl, mesh=mesh):
         factory = pipeline_ep.build_ep_pipeline(
             c, mesh, num_stages=S, num_microbatches=M, compress=compress,
             quant_impl=impl)
@@ -2979,7 +3104,83 @@ def moe_ep_chain(dev, cfg, params, card: str, requests: int, seq: int,
         del ref_logits, outs
     emit(phase="moe_ep_chain", config=cfg.name, card=card,
          raw_tol=MOE_RAW_REL, compressed_tol=ZFP_REL, **res)
-    return {"counts": counts, "plain": plain, "want": calls * want}
+
+    # MOE_EP_CHAINS chains at MOE_EP_CF, raw: each chain takes mb / D rows
+    # of every microbatch, so each expert shard dispatches T / (D * ax)
+    # tokens at its own capacity
+    t0 = time.perf_counter()
+    D = MOE_EP_CHAINS
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_EP_CF))
+    (ref_logits, _), fwd_rec = _recorded(lambda: _pipe_run(
+        lambda: transformer.forward(params, c, tokens)[0], dev))
+    mesh_d = make_host_mesh(S, dev, expert_shards=ax, data=D)
+    ((out, fn), s_), rec = _recorded(lambda: _pipe_run(
+        lambda: chain(c, False, "kernel", mesh_d), dev))
+    rel = _rel_err(out, ref_logits)
+    emit(phase="moe_ep_chains", config=cfg.name, card=card, chains=D,
+         capacity_factor=MOE_EP_CF, rows_per_chain=mb // D,
+         tokens_per_shard=mb // D * seq // ax, seconds=s_,
+         tokens_per_s=requests * seq / s_,
+         one_chain_tokens_per_s=res[f"raw_cf{MOE_EP_CF}"]["tokens_per_s"],
+         rel_err_vs_forward=rel, raw_tol=MOE_RAW_REL, dispatch=rec,
+         dropped=_dropped(rec), forward_dispatch=fwd_rec,
+         relays_per_chain=[g.relays for g in fn.pipe.chain_logs],
+         phase_s=time.perf_counter() - t0)
+    check(bool(torch.isfinite(out).all()),
+          f"moe chain in {D} chains: logits not finite")
+    check(_dropped(rec) == 0 and _dropped(fwd_rec) == 0,
+          f"moe chain in {D} chains at cf {MOE_EP_CF} dropped: {rec} "
+          f"{fwd_rec}")
+    check(rel <= MOE_RAW_REL, f"raw moe chain in {D} chains vs forward: "
+                              f"{rel}")
+    del out, ref_logits
+    # the same chains compressed: D * M * (S - 1) relays, each quantized
+    # on its chain's own [mb / D * seq, d] grid by the kernels; the stream
+    # equals each chain run alone over its rows through the plain codec
+    t0 = time.perf_counter()
+    want_d, h = D * M * (S - 1), mb // D
+    x = lm_layers.embed(params["embed"], tokens).reshape(M, mb, seq, -1)
+    both_fn = pipeline_ep.build_ep_pipeline(
+        c, mesh_d, num_stages=S, num_microbatches=M, compress=True,
+        quant_impl="kernel")(stacked, valid)
+    before = dict(bq.launches), dict(bq.plain_calls)
+    (both, s_), rec = _recorded(lambda: _pipe_run(
+        lambda: both_fn((stacked, valid), x), dev))
+    for k in bq.launches:
+        got = (bq.launches[k] - before[0][k], bq.plain_calls[k] - before[1][k])
+        check(got == ((want_d, 0) if cuda else (0, want_d)),
+              f"compressed moe chain in {D} chains: {k} launches / plain "
+              f"calls {got}, want {want_d}")
+        counts[k] += got[0]
+        plain[k] += got[1]
+    alone = pipeline_ep.build_ep_pipeline(
+        c, mesh, num_stages=S, num_microbatches=M, compress=True,
+        quant_impl="plain")(stacked, valid)
+    before = dict(bq.launches), dict(bq.plain_calls)
+    same = [bool(torch.equal(both[:, g * h:(g + 1) * h],
+                             alone((stacked, valid), x[:, g * h:(g + 1) * h])))
+            for g in range(D)]
+    moved = [bq.launches[k] - before[0][k] + bq.plain_calls[k] - before[1][k]
+             for k in bq.launches]
+    emit(phase="moe_ep_chains_compressed", config=cfg.name, card=card,
+         chains=D, capacity_factor=MOE_EP_CF, rows_per_chain=h,
+         relay_grid=[h * seq, cfg.d_model], seconds=s_,
+         tokens_per_s=requests * seq / s_, launches_per_call=want_d,
+         dispatch=rec, dropped=_dropped(rec),
+         each_chain_equals_plain_alone=same,
+         relays_per_chain=[g.relays for g in both_fn.pipe.chain_logs],
+         encoded_per_chain=[g.encoded
+                            for g in both_fn.pipe.chain_logs],
+         phase_s=time.perf_counter() - t0)
+    check(bool(torch.isfinite(both).all()),
+          f"compressed moe chain in {D} chains: stream not finite")
+    check(moved == [0] * len(moved),
+          f"the plain-codec chain alone moved the kernels' counters: {moved}")
+    check(all(same), f"compressed moe chain in {D} chains != each chain "
+                     f"alone through the plain codec: {same}")
+    del both, x
+    return {"counts": counts, "plain": plain, "want": calls * want + want_d}
 
 
 def moe_phase(dev, cfg, card: str, cut: str | None, batch: int, prompt: int,
@@ -3085,7 +3286,8 @@ def train_launcher(dev, arch: str, smoke: bool, card: str) -> dict:
     the last TRAIN_PROFILE_STEPS profiled.  Then the run's own weights are
     drawn again (``init_lm`` at its seed) and step 0's loss is held
     against ``loss_fn`` without grad on its batch.  Returns those weights
-    for the card-vs-CPU step."""
+    for the card-vs-CPU step and the run's peak device bytes (None off the
+    card)."""
     cfg = (cfg_registry.get_smoke if smoke else cfg_registry.get_config)(arch)
     n_params = cfg.param_count()
     rec = _StepProfiler(dev, TRAIN_STEPS - 1, TRAIN_PROFILE_STEPS)
@@ -3143,7 +3345,7 @@ def train_launcher(dev, arch: str, smoke: bool, card: str) -> dict:
          profile=rec.profile)
     check(_rel_scalar(hist[0]["loss"], loss0) <= TRAIN_LOSS_REL,
           f"step 0's loss {hist[0]['loss']} vs loss_fn without grad {loss0}")
-    return w0
+    return w0, peak
 
 
 def _leaf_errs(got, want) -> list[tuple[str, float, torch.Tensor]]:
@@ -3293,12 +3495,13 @@ def train_refuses_kernel_grad(dev) -> None:
 
 def train_phase(dev, smoke: bool, card: str) -> dict:
     """Slice N's path (phase 10): items 1-5 above, TF32 off; returns the
-    kernels' counters before and after (they must not move)."""
+    kernels' counters before and after (they must not move) and the
+    launcher's peak device bytes."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.perf_counter()
     before = _kernel_counts()
-    w0 = train_launcher(dev, TRAIN_ARCH, smoke, card)
+    w0, peak = train_launcher(dev, TRAIN_ARCH, smoke, card)
     cfg = (cfg_registry.get_smoke if smoke
            else cfg_registry.get_config)(TRAIN_ARCH)
     train_card_vs_cpu(dev, w0, cfg, card)
@@ -3315,7 +3518,60 @@ def train_phase(dev, smoke: bool, card: str) -> dict:
          kernel_counts_after=after, phase_s=time.perf_counter() - t_phase)
     check(after == before, "a kernel counter moved during the training "
                            "phase")
-    return {"before": before, "after": after}
+    return {"before": before, "after": after, "peak": peak}
+
+
+# -- phase 11: the dry run (launch/specs.py, launch/dryrun.py) ---------------------
+
+def dryrun_phase(smoke: bool, measured_peak: int | None, card: str) -> dict:
+    """``dryrun_step`` at slice N's own training step (TRAIN_ARCH, TRAIN_SEQ
+    x TRAIN_BATCH tokens, float32, the config's remat as
+    ``launch.train.run`` leaves it) on the one-card mesh (data 1, model
+    1): its predicted peak (argument + temp bytes) against the train
+    phase's measured ``max_memory_allocated``, within DRYRUN_PEAK_REL
+    (skipped where nothing was measured: the CPU rehearsal).  Then
+    ``dryrun_pair(TRAIN_ARCH, "prefill_32k")`` on both production meshes:
+    status "ok" and FLOPs > 1e9 (the reference test's bar).  Every trace
+    is on ``meta``."""
+    t_phase = time.perf_counter()
+    cfg = (cfg_registry.get_smoke if smoke
+           else cfg_registry.get_config)(TRAIN_ARCH)
+    shape = cfg_base.InputShape("slice_n", TRAIN_SEQ, TRAIN_BATCH, "train")
+    art = dryrun.dryrun_step(cfg, shape,
+                             make_mesh_compat((1, 1), ("data", "model")),
+                             torch.float32)
+    mem = art["memory"]
+    pred = mem["argument_bytes"] + mem["temp_bytes"]
+    rel = (None if measured_peak is None
+           else (pred - measured_peak) / measured_peak)
+    emit(phase="dryrun_train_peak", config=cfg.name, card=card,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=art["dtype"],
+         remat=cfg.remat, remat_policy=cfg.remat_policy, fsdp=art["fsdp"],
+         argument_bytes=mem["argument_bytes"], temp_bytes=mem["temp_bytes"],
+         predicted_peak_bytes=pred, measured_peak_bytes=measured_peak,
+         rel=rel, tol=DRYRUN_PEAK_REL, trace_s=art["compile_s"],
+         devices=art["devices"], off_meta=art["off_meta"],
+         flops=art["cost"]["flops"],
+         flops_estimate=art["cost"]["flops_estimate"])
+    check(art["status"] == "ok" and art["devices"] == ["meta"]
+          and sum(art["off_meta"].values()) == 0,
+          f"the dry run of {cfg.name}'s step: {art}")
+    check(rel is None or abs(rel) <= DRYRUN_PEAK_REL,
+          f"dry run's predicted peak {pred} vs the train phase's measured "
+          f"{measured_peak}: {rel}")
+    pairs = {}
+    for multi_pod in (False, True):
+        a = dryrun.dryrun_pair(TRAIN_ARCH, "prefill_32k", multi_pod=multi_pod,
+                               verbose=False)
+        pairs["pod2" if multi_pod else "pod1"] = a
+        emit(phase="dryrun_pair", card=card, **a)
+        check(a["status"] == "ok" and a["cost"]["flops"] > 1e9
+              and a["devices"] == ["meta"]
+              and sum(a["off_meta"].values()) == 0,
+              f"dry run of {TRAIN_ARCH} prefill_32k multi_pod={multi_pod}: "
+              f"{a}")
+    emit(phase="dryrun", card=card, phase_s=time.perf_counter() - t_phase)
+    return {"train": art, "pairs": pairs, "rel": rel}
 
 
 def main() -> int:
@@ -3360,6 +3616,7 @@ def main() -> int:
         # slice N at smoke width: the launcher, CPU against CPU, the loss
         # drop and the resume (the kernel refusal needs the card)
         train_phase(torch.device("cpu"), True, "cpu rehearsal")
+        dryrun_phase(True, None, "cpu rehearsal")
         print("chip_smoke: CPU rehearsal done; no result", file=sys.stderr)
         return 3
     if not torch.cuda.is_available():
@@ -3463,8 +3720,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
-    train_phase(dev, False, card)
+    train = train_phase(dev, False, card)
     emit(phase="train_phase_done", seconds=time.perf_counter() - t_train)
+    t_dry = time.perf_counter()
+    dryrun_phase(False, train["peak"], card)
+    emit(phase="dryrun_phase_done", seconds=time.perf_counter() - t_dry)
     gc.collect()
     torch.cuda.empty_cache()
     times = time_kernels(dev, SWEEP + PIPE_GRIDS + MOE_GRIDS)

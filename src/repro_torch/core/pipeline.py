@@ -38,6 +38,16 @@ runs :mod:`repro_torch.kernels.ref`'s ``quantize_blocks_ref`` /
 is ``"kernel"``, so nothing on the card runs the plain version unless
 asked to; the reference's default is ``"jnp"``.
 
+Several chains (``data_axes``).  The reference's ``shard_map`` splits the
+stream's dim 1 (each microbatch's rows) over its data axes, and each data
+group runs the whole schedule on its slice through the same stage weights.
+The port runs the D chains as D calls of :func:`pipeline_apply`, one
+after another on the stage devices, and concatenates their outputs along
+dim 1 in the reference's order.  Each chain is its own call, never the
+whole batch at once: the relay's (8, 128) tiles and scales, a moe stage's
+capacity and the GEMMs' M are those of the chain's own rows.  So a
+compressed call quantizes ``D * M * (S - 1)`` times per stream leaf.
+
 The stage body is caller-supplied (``unit_fn``), so the same pipeline
 drives every family: dense and SSM units relay ``[mb, seq, d]``; an
 encoder-decoder relays ``{"h", "enc"}`` leaf by leaf; zamba2's shared
@@ -46,6 +56,7 @@ block rides as ``extra``, passed whole to every stage.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -148,12 +159,13 @@ def stage_slice(tree: Any, s: int, device: torch.device) -> Any:
     return tree_map(one, tree)
 
 
-def _stack(trees: list) -> Any:
-    """Leaf-wise stack of same-structure trees along a new axis 0."""
+def _stack(trees: list, join=torch.stack) -> Any:
+    """Leaf-wise ``join`` of same-structure trees (by default a stack
+    along a new axis 0)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+        return {k: _stack([t[k] for t in trees], join) for k in first}
+    return join(trees)
 
 
 def _devices(devices: Sequence[torch.device] | None, like: torch.Tensor,
@@ -210,25 +222,47 @@ def pipeline_apply(stage_params: Any, x_mb: Any, extra: Any = None, *,
     return _stack(out)
 
 
+def _add_logs(logs: list[RelayLog]) -> RelayLog:
+    return RelayLog(*(sum(getattr(g, f.name) for g in logs)
+                      for f in dataclasses.fields(RelayLog)))
+
+
 class Pipeline:
     """The chain as a callable, ``fn(stage_params, x_mb[, extra]) -> y_mb``
-    (see :func:`pipeline_apply`); ``relayed`` is its last call's
-    :class:`RelayLog`."""
+    (see :func:`pipeline_apply`), run as ``chains`` chains over slices of
+    each microbatch's rows.  ``chain_logs`` is its last call's
+    :class:`RelayLog` of each chain, ``relayed`` their sum."""
 
     def __init__(self, mesh, cfg: PipelineConfig,
-                 unit_fn: Callable[..., Any], with_extra: bool):
+                 unit_fn: Callable[..., Any], with_extra: bool,
+                 chains: int = 1):
         self.mesh, self.cfg, self.unit_fn = mesh, cfg, unit_fn
-        self.with_extra = with_extra
+        self.with_extra, self.chains = with_extra, chains
+        self.chain_logs = [RelayLog() for _ in range(chains)]
         self.relayed = RelayLog()
 
     def __call__(self, stage_params: Any, x_mb: Any, extra: Any = None):
         if self.with_extra != (extra is not None):
             raise TypeError("extra is required exactly when the pipeline "
                             "was built with_extra")
-        self.relayed = RelayLog()
-        return pipeline_apply(stage_params, x_mb, extra, unit_fn=self.unit_fn,
-                              cfg=self.cfg, devices=self.mesh.devices,
-                              log=self.relayed)
+        D = self.chains
+        bad = [tuple(a.shape) for a in tree_leaves(x_mb)
+               if D > 1 and (a.dim() < 2 or a.shape[1] % D)]
+        if bad:
+            raise ValueError(f"stream leaves {bad}: their rows (dim 1) do "
+                             f"not split over {D} chains")
+        self.chain_logs = [RelayLog() for _ in range(D)]
+        outs = []
+        for g, log in enumerate(self.chain_logs):
+            x_g = x_mb if D == 1 else tree_map(
+                lambda a, g=g: a.narrow(1, g * (a.shape[1] // D),
+                                        a.shape[1] // D), x_mb)
+            outs.append(pipeline_apply(stage_params, x_g, extra,
+                                       unit_fn=self.unit_fn, cfg=self.cfg,
+                                       devices=self.mesh.devices, log=log))
+        self.relayed = _add_logs(self.chain_logs)
+        return outs[0] if D == 1 else _stack(
+            outs, lambda ys: torch.cat(ys, dim=1))
 
 
 def make_pipeline(mesh, cfg: PipelineConfig, unit_fn: Callable[..., Any],
@@ -242,18 +276,20 @@ def make_pipeline(mesh, cfg: PipelineConfig, unit_fn: Callable[..., Any],
     ``num_stages``, ``x_mb [M, mb, seq, d]`` is the microbatch stream and
     ``y_mb [M, mb, seq, d]`` the outputs in FIFO order.
 
-    ``data_axes`` replicates the chain over groups of devices in the
-    reference (the paper's "independent chains"); the port has one chain,
-    so it must be empty (ROADMAP queue 1 item 11).
+    ``data_axes`` name mesh axes whose sizes multiply to the number of
+    chains D (the paper's "independent chains"): each chain takes
+    ``mb / D`` rows of every microbatch, in axis order, and runs the whole
+    schedule on them (the module docstring says how).
     """
-    if data_axes:
-        raise NotImplementedError(
-            f"data_axes {data_axes}: replicated chains over several device "
-            "groups are not ported yet (ROADMAP queue 1 item 11)")
     if mesh.num_stages != cfg.num_stages:
         raise ValueError(f"mesh has {mesh.num_stages} stages, the config "
                          f"{cfg.num_stages}")
-    return Pipeline(mesh, cfg, unit_fn, with_extra)
+    missing = [a for a in data_axes if a not in mesh.shape]
+    if missing:
+        raise ValueError(f"data_axes {missing} are not axes of the mesh "
+                         f"{mesh.shape}")
+    chains = math.prod(int(mesh.shape[a]) for a in data_axes)
+    return Pipeline(mesh, cfg, unit_fn, with_extra, chains)
 
 
 # -- stage-stacking helpers ---------------------------------------------------------

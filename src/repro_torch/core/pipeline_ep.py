@@ -10,7 +10,8 @@ full expert set on one device.  The reference's layout is the DEFER chain
 * expert — within a stage: attention is head-sharded (each shard's
            ``wo`` partial summed over the shards) and the MoE is GShard
            expert parallelism (:func:`repro_torch.models.moe.moe_block_local`)
-* data   — replicated chains; the port runs one (ROADMAP queue 1 item 11)
+* data   — replicated chains, each over its slice of every microbatch's
+           rows (:class:`repro_torch.core.pipeline.Pipeline`)
 
 The reference runs this as one SPMD program under ``shard_map``.  The port
 drives a stage's ``ax`` expert shards itself, in shard order: the
@@ -173,22 +174,20 @@ def build_ep_pipeline(cfg: ModelConfig, mesh, num_stages: int,
     and ``units_stacked, valid = stack_stages(params["units"], ...)``.
 
     ``mesh`` is a :class:`repro_torch.launch.mesh.StageMesh` (or anything
-    with ``shape`` and ``devices``); its ``expert_axis`` size is the
-    shard count.  ``data_axes`` of size > 1 (several chains) are not
-    ported (ROADMAP queue 1 item 11).  ``quant_impl`` is the relay codec's
-    route, as in :class:`repro_torch.core.pipeline.PipelineConfig`.
+    with ``shape``, ``num_stages`` and ``devices``); its ``expert_axis``
+    size is the shard count, and its ``data_axes`` sizes multiply to the
+    number of chains, each over its slice of every microbatch's rows, so
+    each shard of a chain dispatches ``mb * S / (D * ax)`` tokens at their
+    own capacity.  ``quant_impl`` is the relay codec's route, as in
+    :class:`repro_torch.core.pipeline.PipelineConfig`.
     """
-    chains = int(np.prod([mesh.shape.get(a, 1) for a in data_axes]))
-    if chains > 1:
-        raise NotImplementedError(
-            f"data_axes {data_axes}: {chains} replicated chains are not "
-            "ported yet (ROADMAP queue 1 item 11)")
     pipe_cfg = PipelineConfig(num_stages=num_stages,
                               num_microbatches=num_microbatches,
                               axis=stage_axis, compress=compress,
                               quant_impl=quant_impl, unroll_ticks=unroll)
     ax = axis_size(mesh, expert_axis)
-    pipe = make_pipeline(mesh, pipe_cfg, ep_unit_fn(cfg, unroll=unroll))
+    pipe = make_pipeline(mesh, pipe_cfg, ep_unit_fn(cfg, unroll=unroll),
+                         data_axes=data_axes)
 
     def fn_factory(units_stacked, valid):
         del units_stacked, valid        # cut per call, as shard_map's specs

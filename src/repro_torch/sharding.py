@@ -148,20 +148,21 @@ class NamedSharding:
     spec: P
 
 
-def _bind(mesh, specs: Any) -> Any:
+def bind(mesh, specs: Any) -> Any:
+    """A tree of specs as :class:`NamedSharding` objects on ``mesh``."""
     if isinstance(specs, dict):
-        return {k: _bind(mesh, v) for k, v in specs.items()}
+        return {k: bind(mesh, v) for k, v in specs.items()}
     return NamedSharding(mesh, specs)
 
 
 def param_shardings(params: Any, mesh, model_axis: str = "model") -> Any:
     specs = param_pspecs(params, model_axis,
                          model_size=mesh.shape[model_axis])
-    return _bind(mesh, specs)
+    return bind(mesh, specs)
 
 
 def batch_shardings(batch: Any, mesh) -> Any:
-    return _bind(mesh, batch_pspecs(batch, mesh))
+    return bind(mesh, batch_pspecs(batch, mesh))
 
 
 def device_put(tree: Any, shardings: Any) -> Any:

@@ -53,7 +53,8 @@ def test_port_module_list_covers_the_slice():
                  "repro_torch.train", "repro_torch.train.optimizer",
                  "repro_torch.train.loop", "repro_torch.train.checkpoint",
                  "repro_torch.data", "repro_torch.data.pipeline",
-                 "repro_torch.launch.steps", "repro_torch.launch.train"):
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert want in names, want
 
 
@@ -99,3 +100,16 @@ def test_port_chaos_harness_imports_without_jax_or_repro():
     """``tools/torch_chaos.py``, the port's fault injector, imports with
     ``jax`` and ``repro`` blocked and pulls neither in."""
     _import_blocked(["tools.torch_chaos"], os.pathsep.join([_SRC, _ROOT]))
+
+
+def test_every_reference_module_has_a_twin():
+    """Each module of the JAX package has a port module at the same path
+    under ``src/repro_torch``."""
+    def modules(pkg):
+        root = os.path.join(_SRC, pkg)
+        return {os.path.relpath(p, root) for p in
+                glob.glob(os.path.join(root, "**", "*.py"), recursive=True)}
+
+    ref = modules("repro")
+    assert len(ref) > 30 and "launch/dryrun.py" in ref
+    assert ref - modules("repro_torch") == set()

@@ -8,12 +8,18 @@ one CPU device instead (``_vmap_pipeline``, put in place of
 ``repro.launch.serve.make_pipeline`` with pytest's monkeypatch): the same
 per-stage body, the same ``ppermute`` relay, in-process and in seconds.
 
+Several chains (``data_axes``) are held against the reference's
+``pipeline_apply`` on each chain's rows, and in a ``slow`` subprocess
+against the reference's own ``shard_map`` program on 4 fake XLA devices.
+
 Weights are the reference's, carried over with ``params_from_jax``.  On
 the CPU the port's block-quant wrappers run their plain versions; the
 ``cuda`` tests and ``chip_smoke.py`` drive the kernels on a card.
 """
+import dataclasses
 import functools
 import os
+import pickle
 import subprocess
 import sys
 
@@ -29,9 +35,11 @@ from repro.core import pipeline as jpipe
 from repro.models import transformer as JT
 from repro_torch.configs import registry as treg
 from repro_torch.core import pipeline as tpipe
+from repro_torch.core import pipeline_ep as tpe
 from repro_torch.kernels import block_quant as tbq
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
+from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
 torch.set_num_threads(1)
@@ -211,13 +219,261 @@ def test_compressed_relay_launch_count_is_the_schedules():
 
 
 def test_data_axes_and_a_mismatched_mesh_raise():
+    """A mesh of another stage count raises; so do data axes the mesh
+    lacks, and a stream whose rows do not split over the chains (as
+    ``shard_map`` refuses an indivisible dim)."""
     cfg = tpipe.PipelineConfig(STAGES, M)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tpipe.make_pipeline(tmesh.make_host_mesh(STAGES, "cpu"), cfg,
-                            lambda w, x: x, data_axes=("data",))
     with pytest.raises(ValueError, match="stages"):
         tpipe.make_pipeline(tmesh.make_host_mesh(2, "cpu"), cfg,
                             lambda w, x: x)
+    with pytest.raises(ValueError, match="not axes of the mesh"):
+        tpipe.make_pipeline(tmesh.make_host_mesh(STAGES, "cpu"), cfg,
+                            lambda w, x: x, data_axes=("pod", "data"))
+    fn = tpipe.make_pipeline(tmesh.make_host_mesh(STAGES, "cpu", data=2),
+                             cfg, lambda w, x: x, data_axes=("data",))
+    assert fn.chains == 2
+    with pytest.raises(ValueError, match="do not split over 2 chains"):
+        fn((np.zeros((STAGES, 1)), np.ones((STAGES, 1), bool)),
+           torch.zeros(M, 3, 8, D_TOY))
+
+
+# -- several chains (the reference's data axes) -----------------------------------
+
+CHAINS = 2
+
+
+def _record_relays(monkeypatch) -> list:
+    """Every relay the port's codec encodes, in order: (the activation,
+    q, scales)."""
+    seen = []
+    encode = tpipe._wire_encode
+
+    def recording(y, impl):
+        q, sc = encode(y, impl)
+        seen.append((y.clone(), q, sc))
+        return q, sc
+
+    monkeypatch.setattr(tpipe, "_wire_encode", recording)
+    return seen
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_two_chains_match_the_reference_on_each_chains_rows(compress,
+                                                            monkeypatch):
+    """D = 2 chains over the toy stream (4 rows a microbatch, 2 a chain)
+    against the reference's ``pipeline_apply`` (under vmap) run on each
+    chain's rows: raw within 1e-6 of the largest |y|, compressed within
+    one quantization step (observed 1.9e-6 and 1.4e-6 of 8.1).  Each chain equals the port's single
+    chain on its rows bit for bit, its relay log counts M * (S - 1)
+    relays, and every relay is quantized on the chain's own grid
+    ([2 * 8, 96] padded to [16, 128]) into the reference codec's q and
+    scales byte for byte."""
+    w, x = _toy()
+    x = np.concatenate([x, x[:, ::-1] * 0.5], axis=1)     # 4 rows
+    h = x.shape[1] // CHAINS
+    cfg_j = jpipe.PipelineConfig(STAGES, M, compress=compress)
+    jfn = jax.jit(_vmap_pipeline(None, cfg_j, jpipe.make_stage_unit_fn(
+        lambda up, hh: hh + jnp.tanh(hh @ up))))
+    jst = jpipe.stack_stages(jnp.asarray(w), N_TOY, STAGES)
+    jy = np.concatenate([np.asarray(jfn(jst, jnp.asarray(x[:, g * h:
+                                                            (g + 1) * h])))
+                         for g in range(CHAINS)], axis=1)
+    unit = tpipe.make_stage_unit_fn(lambda up, hh: hh + torch.tanh(hh @ up))
+    cfg = tpipe.PipelineConfig(STAGES, M, compress=compress)
+    st = tpipe.stack_stages(_t(w), N_TOY, STAGES)
+    seen = _record_relays(monkeypatch)
+    fn = tpipe.make_pipeline(tmesh.make_host_mesh(STAGES, "cpu",
+                                                  data=CHAINS), cfg, unit,
+                             data_axes=("data",))
+    assert fn.mesh.shape == {"data": CHAINS, "expert": 1, "stage": STAGES}
+    y = fn(st, _t(x))
+    relays = list(seen)
+    err = float(np.abs(y.numpy() - jy).max())
+    assert err <= (float(np.abs(jy).max()) / 127.0 if compress
+                   else 1e-6 * float(np.abs(jy).max()))
+    one = tpipe.make_pipeline(tmesh.make_host_mesh(STAGES, "cpu"), cfg, unit)
+    for g in range(CHAINS):
+        torch.testing.assert_close(y[:, g * h:(g + 1) * h],
+                                   one(st, _t(x[:, g * h:(g + 1) * h])),
+                                   rtol=0, atol=0)
+    per = M * (STAGES - 1)
+    assert [(c.relays, c.encoded) for c in fn.chain_logs] == \
+        [(per, per if compress else 0)] * CHAINS
+    assert fn.relayed.relays == CHAINS * per
+    assert len(relays) == (CHAINS * per if compress else 0)
+    for i, (act, q, sc) in enumerate(relays):
+        assert act.shape == (h, 8, D_TOY) and q.shape == (16, 128)
+        jq, js = _j_encode()(jnp.asarray(act.numpy()))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        assert sc.numpy().tobytes() == np.asarray(js).tobytes()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_two_chain_pipeline_lm_matches_the_reference_forward(arch):
+    """``build_pipeline_lm(..., data_axes=("data",))`` over a mesh of data
+    2 at S = 4, M = 4, B = 8 (2 rows a microbatch, 1 a chain): raw within
+    the reference's 1e-4 of its ``forward`` (observed at most 1.8e-5),
+    compressed within its 0.15 (observed 0.016-0.058); each chain relays
+    M * (S - 1) times per stream leaf."""
+    jparams, tokens, kw, ref, _ = _lm_case(arch)
+    tcfg = treg.get_smoke(arch)
+    params = TT.params_from_jax(jparams, device="cpu")
+    tkw = {k: torch.from_numpy(v) for k, v in kw.items()}
+    mesh = tmesh.make_host_mesh(STAGES, "cpu", data=CHAINS)
+    for compress in (False, True):
+        lm = tserve.build_pipeline_lm(tcfg, params, mesh, STAGES, M,
+                                      compress=compress, data_axes=("data",))
+        with torch.inference_mode():
+            out = lm(torch.from_numpy(tokens), **tkw).numpy()
+        if compress:
+            assert _rel(out, ref) <= ZFP_REL
+        else:
+            assert np.abs(out - ref).max() <= RAW_TOL
+        n = M * (STAGES - 1) * (2 if tcfg.encoder_layers else 1)
+        assert [c.relays for c in lm.fn.chain_logs] == [n] * CHAINS
+
+
+_REF_CHAINS_SCRIPT = r"""
+import os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import dataclasses
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import registry
+from repro.core import pipeline as jpipe
+from repro.core.pipeline_ep import build_ep_pipeline
+from repro.launch.mesh import make_mesh_compat
+from repro.launch.serve import build_pipeline_lm
+from repro.models import layers as L
+from repro.models import transformer as T
+
+out = {"relays": []}
+encode = jpipe._wire_encode
+
+
+def recording(y, impl):
+    q, sc = encode(y, impl)
+    jax.debug.callback(
+        lambda q, sc, d, s: out["relays"].append(
+            (int(d), int(s), np.asarray(q).tobytes(), np.asarray(sc).tobytes())),
+        q, sc, jax.lax.axis_index("data"), jax.lax.axis_index("stage"))
+    return q, sc
+
+
+jpipe._wire_encode = recording
+mesh = make_mesh_compat((2, 2), ("data", "stage"))
+w, x = (np.load(sys.argv[1])[k] for k in ("w", "x"))
+st = jpipe.stack_stages(jnp.asarray(w), w.shape[0], 2)
+for compress in (False, True):
+    fn = jpipe.make_pipeline(
+        mesh, jpipe.PipelineConfig(2, x.shape[0], compress=compress),
+        jpipe.make_stage_unit_fn(lambda up, h: h * up[0] + up[1]),
+        data_axes=("data",))
+    with mesh:
+        out[f"toy_{compress}"] = np.asarray(jax.jit(fn)(st, jnp.asarray(x)))
+    jax.effects_barrier()
+
+cfg = registry.get_smoke("phi3-mini-3.8b")
+params = T.init_lm(cfg, jax.random.PRNGKey(0))
+tokens = np.random.default_rng(5).integers(0, cfg.vocab, (8, 16)).astype(
+    np.int32)
+lm = build_pipeline_lm(cfg, params, mesh, 2, 2, data_axes=("data",))
+with mesh:
+    out["lm"] = np.asarray(jax.jit(lambda t: lm(t))(jnp.asarray(tokens)))
+out["lm_params"] = jax.tree_util.tree_map(np.asarray, params)
+out["lm_tokens"] = tokens
+
+cfg = registry.get_smoke("dbrx-132b")
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                       capacity_factor=8.0))
+params = T.init_lm(cfg, jax.random.PRNGKey(0))
+tokens = np.random.default_rng(6).integers(0, cfg.vocab, (8, 16)).astype(
+    np.int32)
+ep_mesh = make_mesh_compat((2, 1, 2), ("data", "expert", "stage"))
+stacked, valid = jpipe.stack_stages(params["units"], cfg.num_layers, 2)
+fn = build_ep_pipeline(cfg, ep_mesh, 2, 2)(stacked, valid)
+xs = L.embed(params["embed"], jnp.asarray(tokens)).reshape(2, 4, 16, -1)
+with ep_mesh:
+    out["ep"] = np.asarray(jax.jit(fn)((stacked, valid), xs))
+out["ep_params"] = jax.tree_util.tree_map(np.asarray, params)
+out["ep_tokens"] = tokens
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(out, f)
+print("OK")
+"""
+
+
+@pytest.mark.slow
+def test_two_chains_match_the_references_shard_map_on_4_devices(tmp_path):
+    """The reference's own ``make_pipeline`` and ``build_ep_pipeline`` with
+    ``data_axes=("data",)`` on 4 fake XLA devices in a subprocess: mesh
+    (data 2, stage 2) and (data 2, expert 1, stage 2).  The port's two
+    chains on the CPU: a toy chain of elementwise units (a power-of-two
+    scale and a shift, rounded once in either package) within 1e-5 raw
+    and compressed, every relay's q8 ints and scales byte for byte among
+    the ones the reference's chain g encoded at that stage; phi3's
+    prefill pipeline (logits) and dbrx's EP chain at cf 8.0 (its stream)
+    within 1e-5 of the largest |y|, raw."""
+    rng = np.random.default_rng(0)
+    n_units, S, M_, d = 4, 2, 3, 160
+    w = np.stack([2.0 ** rng.integers(-1, 2, (n_units, d)),
+                  rng.standard_normal((n_units, d))], 1).astype(np.float32)
+    x = rng.standard_normal((M_, 4, 5, d)).astype(np.float32)
+    np.savez(tmp_path / "toy.npz", w=w, x=x)
+    r = subprocess.run(
+        [sys.executable, "-c", _REF_CHAINS_SCRIPT, str(tmp_path / "toy.npz"),
+         str(tmp_path / "ref.pkl")], capture_output=True, text=True,
+        timeout=900, cwd=_ROOT,
+        env={"PYTHONPATH": os.path.join(_ROOT, "src"), "PATH": "/usr/bin:/bin",
+             "JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+    with open(tmp_path / "ref.pkl", "rb") as f:
+        ref = pickle.load(f)
+
+    mesh = tmesh.make_host_mesh(S, "cpu", data=CHAINS)
+    st = tpipe.stack_stages(_t(w), n_units, S)
+    unit = tpipe.make_stage_unit_fn(lambda up, h: h * up[0] + up[1])
+    for compress in (False, True):
+        encode, seen = tpipe._wire_encode, []
+
+        def recording(y, impl):
+            q, sc = encode(y, impl)
+            seen.append((q.numpy().tobytes(), sc.numpy().tobytes()))
+            return q, sc
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tpipe, "_wire_encode", recording)
+            fn = tpipe.make_pipeline(mesh, tpipe.PipelineConfig(
+                S, M_, compress=compress), unit, data_axes=("data",))
+            y = fn(st, _t(x)).numpy()
+        want = ref[f"toy_{compress}"]
+        assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
+        per = M_ * (S - 1)
+        assert len(seen) == (CHAINS * per if compress else 0)
+        for i, relay in enumerate(seen):   # stage 0 relays, chain by chain
+            g = i // per
+            assert relay in {(q, sc) for dd, s, q, sc in ref["relays"]
+                             if (dd, s) == (g, 0)}, (g, i)
+
+    cfg = treg.get_smoke("phi3-mini-3.8b")
+    params = TT.params_from_jax(ref["lm_params"], device="cpu")
+    lm = tserve.build_pipeline_lm(cfg, params, mesh, S, 2,
+                                  data_axes=("data",))
+    with torch.inference_mode():
+        out = lm(torch.from_numpy(ref["lm_tokens"])).numpy()
+    assert np.abs(out - ref["lm"]).max() <= 1e-5 * np.abs(ref["lm"]).max()
+
+    cfg = treg.get_smoke("dbrx-132b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    params = TT.params_from_jax(ref["ep_params"], device="cpu")
+    stacked, valid = tpipe.stack_stages(params["units"], cfg.num_layers, S)
+    fn = tpe.build_ep_pipeline(
+        cfg, tmesh.make_host_mesh(S, "cpu", expert_shards=1, data=CHAINS),
+        S, 2)(stacked, valid)
+    xs = TL.embed(params["embed"], torch.from_numpy(ref["ep_tokens"]))
+    with torch.inference_mode():
+        y = fn((stacked, valid), xs.reshape(2, 4, 16, -1)).numpy()
+    assert np.abs(y - ref["ep"]).max() <= 1e-5 * np.abs(ref["ep"]).max()
 
 
 def test_pipeline_mesh_goes_round_robin():

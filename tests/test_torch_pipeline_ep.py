@@ -16,7 +16,6 @@ the CPU the block-quant wrappers run their plain versions;
 """
 import dataclasses
 import functools
-import types
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +24,7 @@ import pytest
 import torch
 
 from repro.configs import registry as jreg
+from repro.core import pipeline as jpipe
 from repro.core import pipeline_ep as jpe
 from repro.core.pipeline import stack_stages as j_stack_stages
 from repro.models import transformer as JT
@@ -221,22 +221,104 @@ def test_tokens_that_do_not_split_over_the_shards_raise():
              torch.zeros(1, 15, tc.d_model))
 
 
-def test_several_chains_are_not_ported():
-    _, tc, _, _, _, _ = _setup()
-    mesh = types.SimpleNamespace(shape={"data": 2, "expert": 2, "stage": 2},
-                                 devices=(torch.device("cpu"),) * 2,
-                                 num_stages=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tpe.build_ep_pipeline(tc, mesh, 2, M)
+def _j_ep_chain(jc, params, x, compress):
+    """The reference's ``pipeline_apply`` over ``ep_unit_fn`` on one
+    chain's stream ``x``, every (stage, expert shard) device at once under
+    nested ``jax.vmap`` (its ``ppermute`` over "stage", its ``psum``,
+    all-gather and ``all_to_all``s over "expert"), the weights cut by its
+    own ``_ep_weight_specs``.  Returns the last stage's outputs."""
+    tmap = jax.tree_util.tree_map
+    stacked, valid = j_stack_stages(params["units"], jc.num_layers, STAGES)
+    w = tmap(lambda *a: jnp.stack(a),
+             *[_j_shards(tmap(lambda a: a[s], stacked), AX)
+               for s in range(STAGES)])               # [S, ax, u, ...]
+    cfg = jpipe.PipelineConfig(STAGES, M, compress=compress)
+    body = jpe.ep_unit_fn(jc)
+
+    def device(wl, vl, xx):
+        return jpipe.pipeline_apply((tmap(lambda a: a[None], wl), vl[None]),
+                                    xx, unit_fn=body, cfg=cfg)
+
+    per = jax.vmap(jax.vmap(device, in_axes=(0, None, None),
+                            axis_name="expert"),
+                   in_axes=(0, 0, None), axis_name="stage")
+    return np.asarray(jax.jit(per)(w, valid, jnp.asarray(x))[-1, 0])
+
+
+@functools.cache
+def _j_encode():
+    return jax.jit(lambda y: jpipe._wire_encode(y, "jnp"))
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_several_chains_are_not_ported(compress, monkeypatch):
+    """Several chains are ported, and match the reference.  Two chains
+    (mesh data 2 x expert 2 x stage 2): each takes one of
+    every microbatch's two rows, so each expert shard dispatches 8 tokens
+    at their own capacity.  Against the reference's chain run on each
+    chain's rows: raw within 1e-5 of the largest |y|, compressed within
+    one quantization step of it (observed 1.8e-5 and 0.047 of 13.4: a
+    rounding tie that float order flips moves an element by a step); every
+    relay quantized on the chain's own grid ([16, 256]: its one row of 16
+    tokens) into the reference codec's q and scales byte for byte; each
+    chain bit for bit the one-chain pipeline on its rows."""
+    jc, tc, params, tp, tokens, _ = _setup()
+    D = 2
+    x = TL.embed(tp["embed"], torch.from_numpy(tokens)).reshape(
+        M, B // M, SEQ, -1)
+    h = B // M // D
+    jy = np.concatenate([_j_ep_chain(jc, params, x[:, g * h:(g + 1) * h]
+                                     .numpy(), compress) for g in range(D)],
+                        axis=1)
+    seen = []
+    encode = tpipe._wire_encode
+
+    def recording(y, impl):
+        q, sc = encode(y, impl)
+        seen.append((y.clone(), q, sc))
+        return q, sc
+
+    monkeypatch.setattr(tpipe, "_wire_encode", recording)
+    stacked, valid = tpipe.stack_stages(tp["units"], tc.num_layers, STAGES)
+    mesh = tmesh.make_host_mesh(STAGES, "cpu", expert_shards=AX, data=D)
+    fn = tpe.build_ep_pipeline(tc, mesh, STAGES, M, compress=compress)(
+        stacked, valid)
+    TM.reset_dispatch_record()
+    y = fn((stacked, valid), x)
+    assert TM.dropped() == 0 and set(TM.dispatch_record) == {(8, 32)}
+    err = float(np.abs(y.numpy() - jy).max())
+    assert err <= (float(np.abs(jy).max()) / 127.0 if compress
+                   else BODY_TOL * float(np.abs(jy).max()))
+    per = M * (STAGES - 1)
+    assert [(c.relays, c.encoded) for c in fn.pipe.chain_logs] == \
+        [(per, per if compress else 0)] * D
+    assert len(seen) == (D * per if compress else 0)
+    for act, q, sc in seen:
+        assert act.shape == (h, SEQ, tc.d_model)
+        assert q.shape == (16, tc.d_model)
+        jq, js = _j_encode()(jnp.asarray(act.numpy()))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        assert sc.numpy().tobytes() == np.asarray(js).tobytes()
+    one = tpe.build_ep_pipeline(
+        tc, tmesh.make_host_mesh(STAGES, "cpu", expert_shards=AX), STAGES, M,
+        compress=compress)(stacked, valid)
+    for g in range(D):
+        assert torch.equal(y[:, g * h:(g + 1) * h],
+                           one((stacked, valid), x[:, g * h:(g + 1) * h]))
 
 
 def test_stage_mesh_has_expert_shards():
     mesh = tmesh.make_host_mesh(2, "cpu", expert_shards=4)
-    assert mesh.shape == {"expert": 4, "stage": 2}
+    assert mesh.shape == {"data": 1, "expert": 4, "stage": 2}
     assert mesh.devices == (torch.device("cpu"),) * 2
-    assert tmesh.make_host_mesh(3, "cpu").shape == {"expert": 1, "stage": 3}
+    assert tmesh.make_host_mesh(3, "cpu").shape == {"data": 1, "expert": 1,
+                                                    "stage": 3}
+    assert tmesh.make_host_mesh(3, "cpu", 2, data=4).shape == \
+        {"data": 4, "expert": 2, "stage": 3}
     with pytest.raises(ValueError, match="expert_shards"):
         tmesh.make_pipeline_mesh(2, ["cpu"], expert_shards=0)
+    with pytest.raises(ValueError, match="data"):
+        tmesh.make_pipeline_mesh(2, ["cpu"], data=0)
 
 
 # -- the moe family through the launcher ---------------------------------------------
