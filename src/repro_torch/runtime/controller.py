@@ -371,8 +371,14 @@ class Controller:
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop_evt.clear()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="defer-controller")
         self._thread.start()
+
+    @property
+    def thread(self) -> threading.Thread | None:
+        """The control loop's thread (None when stopped)."""
+        return self._thread
 
     def stop(self) -> None:
         self._stop_evt.set()

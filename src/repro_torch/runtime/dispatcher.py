@@ -50,11 +50,17 @@ from repro_torch.device import get_device
 from repro_torch.core.partitioner import LinkModel, Partition, partition
 from repro_torch.runtime.node import _STOP, ComputeNode
 from repro_torch.runtime.router import FenceTally, StageGroup
+from repro_torch.runtime.spans import SpanLog, waited
 from repro_torch.runtime.topology import TopologySpec
 from repro_torch.runtime.transport import Channel, ChannelClosed, get_transport
 from repro_torch.runtime.wire import (BatchEnvelope, NodePlan, ReconfigMarker,
                                       RowExtent, WireCodec, WireRecord,
                                       slice_parts, validate_client_id)
+
+
+# the dispatcher's queues' wait spans
+_WAIT_SPANS = {"admission": "defer.wait.admission",
+               "result": "defer.wait.result"}
 
 
 class AdmissionFull(Exception):
@@ -243,6 +249,8 @@ class Dispatcher:
                                         device=self.device)
             for f in dataclasses.fields(codecs)})
         self.link = link
+        # the chain's span log, off until InferenceEngine.start_spans
+        self.spans = SpanLog()
         self._defaults = dict(max_batch=max_batch, queue_depth=queue_depth,
                               staged=staged, shape_buckets=shape_buckets,
                               max_batch_cap=max_batch_cap)
@@ -277,7 +285,8 @@ class Dispatcher:
             group = StageGroup(i, spec, replicas, self._stage_inputs[i],
                                upstream=self.stages[i - 1] if i else None,
                                fail_batch=self._finish_batch,
-                               note_displaced=self._note_displaced)
+                               note_displaced=self._note_displaced,
+                               spans=self.spans)
             self.stages.append(group)
         for i, group in enumerate(self.stages):
             nxt = (self._stage_inputs[i + 1] if i + 1 < len(self.stages)
@@ -295,6 +304,9 @@ class Dispatcher:
         # records and admission->result latencies
         self.feed_records: list[WireRecord] = []
         self.latencies: list[float] = []
+        # the decode steps' waits (s times steps) in admission and in the
+        # result channel, the pump's and the collector's takes
+        self.wait_s = {"admission": 0.0, "result": 0.0}
         self._futures: dict[int, Future] = {}
         self._next_id = 0
         self._client_seq: dict[Any, int] = defaultdict(int)
@@ -374,7 +386,7 @@ class Dispatcher:
             max_batch_cap=spec.max_batch_cap or d["max_batch_cap"],
             inbox=self._open_channel(spec.transport, d["queue_depth"]),
             session_capacity=spec.session_capacity or 64,
-            device=self.device)
+            device=self.device, spans=self.spans)
         if spec.coalesce_s is not None:
             node.coalesce_s = spec.coalesce_s
         return node
@@ -460,11 +472,32 @@ class Dispatcher:
                 node.start()
         for group in self.stages:
             group.start()
-        self._pump_thread = threading.Thread(target=self._pump, daemon=True)
+        self._pump_thread = threading.Thread(target=self._pump, daemon=True,
+                                             name="defer-pump")
         self._pump_thread.start()
         self._collect_thread = threading.Thread(target=self._collect,
-                                                daemon=True)
+                                                daemon=True,
+                                                name="defer-collect")
         self._collect_thread.start()
+
+    def threads(self) -> list[threading.Thread]:
+        """Every thread this dispatcher started in this process: pump,
+        collector, reaper, each stage's router and each replica's stage
+        threads (a process-backed replica's relay)."""
+        out = [self._pump_thread, self._collect_thread, self._reaper_thread]
+        for group in self.stages:
+            out.append(group.thread)
+            for node in list(group.replicas):
+                out.extend(node._threads)
+        return [t for t in out if t is not None]
+
+    def _waited(self, name: str, env: BatchEnvelope) -> None:
+        """Close an envelope's wait in admission or the result channel
+        (see :func:`repro_torch.runtime.spans.waited`)."""
+        w = waited(self.spans, _WAIT_SPANS[name], env.t_put, env.extents)
+        if w:
+            with self._lock:
+                self.wait_s[name] += w
 
     def _pump(self) -> None:
         """Admission queue -> first stage's router (the dispatcher's
@@ -480,6 +513,8 @@ class Dispatcher:
                 except (ChannelClosed, OSError):
                     pass                # head link dead: nothing to stop
                 return
+            self._waited("admission", env)
+            t0 = env.t_put = time.perf_counter()
             try:
                 head.send(env)
             except (ChannelClosed, OSError):
@@ -491,6 +526,9 @@ class Dispatcher:
             except Exception:
                 # anything else (encode/framing bug) is not healable
                 self._finish_batch(env.extents, error=traceback.format_exc())
+            if self.spans.on:
+                self.spans.add("defer.pump", t0, time.perf_counter(),
+                               extents=env.extents)
 
     def _collect(self) -> None:
         """Tail of the topology -> per-request futures, released in
@@ -551,20 +589,26 @@ class Dispatcher:
                     return
                 continue
             env: BatchEnvelope = item
-            if env.error is not None:
-                self._finish_batch(env.extents, error=env.error,
-                                   retryable=env.retryable)
-                continue
-            try:
-                flat, _ = self.codecs.data.decode_tree(env.blob)
-                flat = {k: np.asarray(v) for k, v in flat.items()}
-                parts = slice_parts(flat, env.extents)
-            except Exception:               # codec failure at the tail
-                self._finish_batch(env.extents, error=traceback.format_exc())
-                continue
-            results = [(next(iter(p.values())) if len(p) == 1 else p)
-                       for p in parts]
-            self._finish_batch(env.extents, results=results)
+            self._waited("result", env)
+            with self.spans.span("defer.collect", env.extents):
+                self._collect_one(env)
+
+    def _collect_one(self, env: BatchEnvelope) -> None:
+        """Decode one tail envelope and resolve its futures."""
+        if env.error is not None:
+            self._finish_batch(env.extents, error=env.error,
+                               retryable=env.retryable)
+            return
+        try:
+            flat, _ = self.codecs.data.decode_tree(env.blob)
+            flat = {k: np.asarray(v) for k, v in flat.items()}
+            parts = slice_parts(flat, env.extents)
+        except Exception:               # codec failure at the tail
+            self._finish_batch(env.extents, error=traceback.format_exc())
+            return
+        results = [(next(iter(p.values())) if len(p) == 1 else p)
+                   for p in parts]
+        self._finish_batch(env.extents, results=results)
 
     def _release_locked(self, client: Any, now: float) -> list[tuple]:
         """Pop every in-order (by seq) completed result for ``client``.
@@ -739,7 +783,8 @@ class Dispatcher:
     def _ensure_reaper_locked(self) -> None:
         if self._reaper_thread is None and not self._reaper_stop:
             self._reaper_thread = threading.Thread(target=self._reaper,
-                                                   daemon=True)
+                                                   daemon=True,
+                                                   name="defer-reaper")
             self._reaper_thread.start()
 
     def _reaper(self) -> None:
@@ -808,6 +853,7 @@ class Dispatcher:
                        t_submit=rec.t_submit, attempt=rec.attempt)],
             rec.blob)
         try:
+            env.t_put = time.perf_counter()
             self.admission.put(env, block=True, timeout=5.0,
                                priority=rec.priority)
         except queue.Full:
@@ -926,6 +972,7 @@ class Dispatcher:
         session recovery is re-prefill from retained history at the
         session layer, never a wire-level replay.
         """
+        t_in = time.perf_counter()
         if not self._started:
             self.start()
         # reject ids the byte framing can't carry HERE, not as a relay
@@ -989,6 +1036,7 @@ class Dispatcher:
                                        (ret.deadline, 0, rid, 0))
                         self._ensure_reaper_locked()
                         self._timer_cv.notify()
+            env.t_put = time.perf_counter()
             self.admission.put(env, block=block, timeout=timeout,
                                priority=priority)
         except queue.Full:
@@ -1001,6 +1049,9 @@ class Dispatcher:
         with self._lock:
             self._admitting -= 1
             self._idle.notify_all()
+        if self.spans.on:
+            self.spans.add("defer.submit", t_in, time.perf_counter(),
+                           extents=env.extents)
         return fut
 
     def _unregister(self, rid: int, client_id: Any, seq: int) -> None:
@@ -1270,6 +1321,7 @@ class Dispatcher:
         with self._lock:
             self.latencies = []
             self.feed_records = []
+            self.wait_s = dict.fromkeys(self.wait_s, 0.0)
         for node in self.nodes:
             node.reset_stats()
 

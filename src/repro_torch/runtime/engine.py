@@ -36,6 +36,13 @@ counter can legitimately exceed the wall clock — stage threads count
 runnable-but-descheduled time — and the serving controller needs to SEE
 that oversubscription honestly to avoid tuning against a saturated lie.
 
+The report also reads, over the window, the CPU time of every thread the
+chain started (``thread_cpu_s``, by thread name) beside the whole
+process's, and the decode steps' waits in each queue (``step_wait_s``);
+each replica's entry splits its decode steps' time into phases.
+``start_spans`` / ``stop_spans`` record the chain's spans
+(:mod:`repro_torch.runtime.spans`), off otherwise.
+
 With ``controller=ControllerConfig(...)`` the engine runs the serving-time
 feedback loop (:mod:`repro_torch.runtime.controller`): online cost
 calibration from this report's raw telemetry, periodic re-planning of the
@@ -65,6 +72,7 @@ from repro_torch.runtime.controller import Controller, ControllerConfig
 from repro_torch.runtime.dispatcher import (Dispatcher, DispatcherCodecs,
                                             RetryPolicy)
 from repro_torch.runtime.session import generate_tokens
+from repro_torch.runtime.spans import Spans, thread_cpu_s, window_cpu_s
 from repro_torch.runtime.topology import TopologySpec
 from repro_torch.runtime.wire import CHUNK_BYTES
 
@@ -87,6 +95,15 @@ class EngineReport:
     cuts: tuple = ()                   # live partition cut indices
     replicas: tuple = ()               # live per-stage replica counts
     epoch: int = 0                     # committed live fences so far
+    # CPU s over the window of each live thread the chain started, by
+    # name (defer-s{i}r{j}-ingress, defer-route-s{i}, defer-pump, ...),
+    # and of the whole process: the rest is the callers', torch's and the
+    # CUDA driver's threads
+    thread_cpu_s: dict = dataclasses.field(default_factory=dict)
+    process_cpu_s: float = 0.0
+    # decode steps' waits over the window, s times steps: "admission",
+    # "s{i}.inbox", "s{i}.to_compute", "s{i}.to_encode", "result"
+    step_wait_s: dict = dataclasses.field(default_factory=dict)
 
 
 class InferenceEngine:
@@ -137,6 +154,7 @@ class InferenceEngine:
         self.controller = (Controller(self.dispatcher, controller)
                            if controller is not None else None)
         self._window_t0 = time.perf_counter()
+        self._cpu0 = (time.process_time(), {})
 
     @property
     def topology(self) -> TopologySpec:
@@ -157,6 +175,25 @@ class InferenceEngine:
         if self.controller is not None:
             self.controller.start()
         self._window_t0 = time.perf_counter()
+        self._cpu0 = (time.process_time(), thread_cpu_s(self.threads()))
+
+    def threads(self) -> list:
+        """The threads the chain runs on in this process (the
+        dispatcher's and the controller's)."""
+        out = self.dispatcher.threads()
+        if self.controller is not None and self.controller.thread:
+            out.append(self.controller.thread)
+        return out
+
+    # -- spans -----------------------------------------------------------------
+    def start_spans(self) -> None:
+        """Record the chain's spans from now on (off until called)."""
+        self.dispatcher.spans.start()
+
+    def stop_spans(self) -> Spans:
+        """Stop recording; hand over the spans recorded since
+        :meth:`start_spans`."""
+        return self.dispatcher.spans.stop()
 
     # -- async serving path ---------------------------------------------------
     def submit(self, x: np.ndarray, client_id: Any = 0,
@@ -269,6 +306,7 @@ class InferenceEngine:
         lifetime, so long-running servers can report per-interval)."""
         self.dispatcher.reset_stats()
         self._window_t0 = time.perf_counter()
+        self._cpu0 = (time.process_time(), thread_cpu_s(self.threads()))
 
     def report(self, samples: int | None = None,
                wall_s: float | None = None) -> EngineReport:
@@ -279,6 +317,10 @@ class InferenceEngine:
         # (reset_stats -> now): with three overlapping stages per node, any
         # sum-of-busy / load-wall ratio would exceed 1.0 by construction
         util_wall = max(time.perf_counter() - self._window_t0, 1e-9)
+        cpu_now = thread_cpu_s(self.threads())
+        process_cpu = time.process_time() - self._cpu0[0]
+        with d._lock:
+            waits = {"admission": d.wait_s["admission"]}
         lat = LatencySummary.from_values(d.latencies)
         n = samples if samples is not None else lat.count
         per_node = []
@@ -298,6 +340,11 @@ class InferenceEngine:
                     busy_dec = node.busy_decode_s
                     busy_cmp = node.busy_compute_s
                     busy_enc = node.busy_encode_s
+                    # a process-backed replica reports neither
+                    step = dict(getattr(node, "step_s", {}))
+                    for q, w in getattr(node, "wait_s", {}).items():
+                        k = f"s{node.index}.{q}"
+                        waits[k] = waits.get(k, 0.0) + w
                 n_req_raw = sum(t.n for t in tr)
                 n_req = n_req_raw or 1
                 compute = sum(t.compute_s for t in tr) / n_req
@@ -368,8 +415,8 @@ class InferenceEngine:
                     "queue_depth_max": max(depths) if depths else 0,
                     "batch_mean": (float(np.mean([t.n for t in tr])) if tr
                                    else 0.0),
-                    "encodes_per_batch": (float(np.mean(
-                        [t.encodes for t in tr])) if tr else 0.0),
+                    # window totals of the decode steps' phases
+                    **{f"step_{p}_s": v for p, v in step.items()},
                 })
                 stage_service = max(stage_service, service)
                 total_payload += payload
@@ -386,6 +433,8 @@ class InferenceEngine:
             # bottleneck amortizes by its replica count (rate, not latency)
             bottleneck = max(bottleneck,
                              stage_service / max(1, len(live)))
+        with d._lock:
+            waits["result"] = d.wait_s["result"]
         return EngineReport(
             model=d.graph.name,
             num_nodes=num_nodes,
@@ -404,4 +453,7 @@ class InferenceEngine:
             cuts=tuple(d.partition.cuts),
             replicas=d.replicas,
             epoch=d.epoch,
+            thread_cpu_s=window_cpu_s(self._cpu0[1], cpu_now),
+            process_cpu_s=process_cpu,
+            step_wait_s=waits,
         )

@@ -41,6 +41,10 @@ Timings are recorded per batch (``BatchTrace``) and per stage
 can report the paper's metrics (compute, overhead, payload) plus the
 serving ones (per-stage utilization, queue depth, batch occupancy) from
 *real* execution — and so the codec/compute overlap is directly measurable.
+A decode step's time is split into its phases (``step_s``: stack, launch,
+sync, unstack) and the decode steps' time in the three queues is summed
+(``wait_s``), both over the window; with the dispatcher's span log on, the
+same readings become spans (:mod:`repro_torch.runtime.spans`).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ import torch
 from repro_torch.core.graph import LayerGraph, LayerNode, tree_bytes
 from repro_torch.device import get_device
 from repro_torch.runtime.session import SessionStore
+from repro_torch.runtime.spans import WORK, SpanLog, waited
 from repro_torch.runtime.transport import Channel, ChannelClosed, InprocChannel
 # _STOP / _RETIRE live in wire.py so the byte framing can map them to
 # dedicated frame types (a socket transport must carry them too); they are
@@ -95,6 +100,7 @@ class _Decoded:
     extents: list[RowExtent]
     boundary: dict[str, np.ndarray]      # stacked over the envelope's extents
     deserialize_s: float
+    t_put: float = 0.0                   # put on _to_compute (perf_counter)
 
 
 @dataclasses.dataclass
@@ -103,6 +109,13 @@ class _Computed:
 
     buckets: list[tuple[list[RowExtent], dict[str, np.ndarray]]]
     trace: BatchTrace
+    t_put: float = 0.0                   # put on _to_encode (perf_counter)
+
+
+# a decode step's phases, in order (ComputeNode._step_wave)
+STEP_PHASES = ("stack", "launch", "sync", "unstack")
+# a replica's queues, each closed by the take of the thread it feeds
+QUEUES = ("inbox", "to_compute", "to_encode")
 
 
 def _bucket_rows(n: int) -> int:
@@ -158,7 +171,8 @@ class ComputeNode:
                  replica: int = 0,
                  inbox: Channel | None = None,
                  session_capacity: int = 64,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 spans: SpanLog | None = None):
         self.index = index              # stage index (ReconfigMarker plans
         self.replica = replica          # are keyed by it); replica id within
         self.data_codec = data_codec    # the stage
@@ -207,6 +221,18 @@ class ComputeNode:
         self.busy_decode_s: float = 0.0
         self.busy_compute_s: float = 0.0
         self.busy_encode_s: float = 0.0
+        # window totals: a decode step's phases (s), and the decode steps'
+        # waits in each queue (s times steps)
+        self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
+        self.wait_s = dict.fromkeys(QUEUES, 0.0)
+        # the dispatcher's span log (its own, off, for a node built alone)
+        self.spans = spans if spans is not None else SpanLog()
+        s = f"defer.s{index}"
+        self._span_names = {k: f"{s}.{k}" for k in (
+            "decode", "wave", "compute", "prefill", "encode", "relay",
+            *(f"step.{p}" for p in STEP_PHASES))}
+        self._span_names.update({q: f"defer.wait.s{index}.{q}"
+                                 for q in QUEUES})
         self.config_records: list[WireRecord] = []
         self._graph: LayerGraph | None = None
         self._nodes: list[LayerNode] = []
@@ -431,17 +457,20 @@ class ComputeNode:
     def start(self) -> None:
         if any(t.is_alive() for t in self._threads):
             return
+        name = f"defer-s{self.index}r{self.replica}"
         if self.staged:
             self._threads = [
-                threading.Thread(target=self._ingress_loop, daemon=True),
-                threading.Thread(target=self._compute_loop, daemon=True),
+                threading.Thread(target=self._ingress_loop, daemon=True,
+                                 name=f"{name}-ingress"),
+                threading.Thread(target=self._compute_loop, daemon=True,
+                                 name=f"{name}-compute"),
                 threading.Thread(target=self._exit_clearing(self._egress_loop),
-                                 daemon=True),
+                                 daemon=True, name=f"{name}-egress"),
             ]
         else:
             self._threads = [
                 threading.Thread(target=self._exit_clearing(self._legacy_loop),
-                                 daemon=True)]
+                                 daemon=True, name=f"{name}-legacy")]
         for t in self._threads:
             t.start()
 
@@ -486,6 +515,19 @@ class ComputeNode:
             self.busy_decode_s = 0.0
             self.busy_compute_s = 0.0
             self.busy_encode_s = 0.0
+            self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
+            self.wait_s = dict.fromkeys(QUEUES, 0.0)
+
+    def _waited(self, queue_name: str, t_put: float, extents) -> float:
+        """Close the wait of an item this replica's thread just took off
+        ``queue_name`` (see :func:`repro_torch.runtime.spans.waited`)."""
+        return waited(self.spans, self._span_names[queue_name], t_put,
+                      extents, self.index, self.replica)
+
+    def _span(self, name: str, t0: float, t1: float, extents) -> None:
+        """Record one work span of this replica (log on only)."""
+        self.spans.add(self._span_names[name], t0, t1, WORK, extents,
+                       self.index, self.replica)
 
     def _record_depth(self, depth: int) -> None:
         """Record one merge's queue-depth sample.  Caller holds
@@ -547,6 +589,7 @@ class ComputeNode:
         stage — batches form *before* the slow decode, exactly where the
         backlog accumulates, so one wave becomes one apply and one encode."""
         while True:
+            waits = 0.0                 # decode steps' inbox wait (s)
             env = self._ingress_pending
             self._ingress_pending = None
             if env is None:
@@ -561,6 +604,8 @@ class ComputeNode:
                     self.retiring = True
                     self._to_compute.put(_RETIRE)
                     return
+                if isinstance(env, BatchEnvelope):
+                    waits += self._waited("inbox", env.t_put, env.extents)
             if env is _STOP or env is _RETIRE:
                 self._to_compute.put(env)
                 return
@@ -608,6 +653,7 @@ class ComputeNode:
                     # next iteration so it stays ordered behind this wave
                     self._ingress_pending = nxt
                     break
+                waits += self._waited("inbox", nxt.t_put, nxt.extents)
                 if nxt.error is None and n_parts + nxt.n > self.max_batch:
                     # would overflow the batch contract (and the pow2
                     # specializations precompile() traced): next wave's
@@ -621,28 +667,37 @@ class ComputeNode:
             des_busy = 0.0
             decoded: list[_Decoded] = []
             relay: list[BatchEnvelope] = []
+            first = None
             for env in wave:
                 if env.error is not None:       # relay failures untouched
                     relay.append(env)
                     continue
                 t1 = time.perf_counter()
+                first = t1 if first is None else first
                 try:
                     flat, _ = self.data_codec.decode_tree(env.blob)
-                    dt = time.perf_counter() - t1
+                    t2 = time.perf_counter()
                     decoded.append(_Decoded(
                         env.extents,
-                        {k: np.asarray(v) for k, v in flat.items()}, dt))
+                        {k: np.asarray(v) for k, v in flat.items()}, t2 - t1))
                 except Exception:
-                    dt = time.perf_counter() - t1
+                    t2 = time.perf_counter()
                     relay.append(BatchEnvelope(
                         env.extents, b"", error=traceback.format_exc()))
-                des_busy += dt
+                des_busy += t2 - t1
+            if self.spans.on and first is not None:
+                self._span("decode", first, t2,
+                           [e for env in wave for e in env.extents])
             with self._stats_lock:
                 self.busy_decode_s += des_busy
+                self.wait_s["inbox"] += waits
                 self._inflight_n += sum(len(e.extents) for e in wave)
             for env in relay:
                 self._to_compute.put(env)
             if decoded:
+                t_put = time.perf_counter()
+                for d in decoded:
+                    d.t_put = t_put
                 self._to_compute.put(decoded)
             if saw_stop is not None:
                 self._to_compute.put(saw_stop)
@@ -667,6 +722,8 @@ class ComputeNode:
             if isinstance(item, BatchEnvelope):  # error passthrough
                 self._to_encode.put(item)
                 continue
+            waits = self._waited("to_compute", item[0].t_put,
+                                 [e for d in item for e in d.extents])
             # continuous batching, second chance: merge any further decoded
             # waves, up to max_batch requests, without waiting for arrivals
             group = list(item)
@@ -686,6 +743,8 @@ class ComputeNode:
                 if isinstance(nxt, BatchEnvelope):
                     self._to_encode.put(nxt)
                     continue
+                waits += self._waited("to_compute", nxt[0].t_put,
+                                      [e for d in nxt for e in d.extents])
                 add = sum(len(d.extents) for d in nxt)
                 if n_parts + add > self.max_batch:
                     self._compute_pending = nxt     # next merge's
@@ -695,13 +754,19 @@ class ComputeNode:
             with self._stats_lock:
                 self._record_depth(n_parts + self.inbox.qsize()
                                    + self._to_compute.qsize())
+                self.wait_s["to_compute"] += waits
             t0 = time.perf_counter()
             out, failures = self._compute_group(group)
+            t1 = time.perf_counter()
             with self._stats_lock:
-                self.busy_compute_s += time.perf_counter() - t0
+                self.busy_compute_s += t1 - t0
+            if self.spans.on:
+                self._span("wave", t0, t1,
+                           [e for d in group for e in d.extents])
             for env in failures:
                 self._to_encode.put(env)
             if out is not None:
+                out.t_put = time.perf_counter()
                 self._to_encode.put(out)
             if saw_stop is not None:
                 self._to_encode.put(saw_stop)
@@ -732,13 +797,16 @@ class ComputeNode:
         return _Decoded(extents, padded, d.deserialize_s)
 
     def _stack_apply(self, segments: list[dict[str, np.ndarray]],
-                     total: int, target: int) -> tuple[dict[str, np.ndarray], float]:
+                     total: int, target: int, extents: list[RowExtent]
+                     ) -> tuple[dict[str, np.ndarray], float]:
         """Concatenate per-leaf segments along axis 0, zero-pad to ``target``
         rows, run the partition apply once, trim back to ``total``.
         Shared by the staged compute stage and the legacy per-request path.
 
         The timed region ends with the device-to-host copy, which waits for
-        the device: without it ``compute_s`` would record launch time only."""
+        the device: without it ``compute_s`` would record launch time only.
+        The span (``extents``' ``compute``) covers the stacking too."""
+        t_in = time.perf_counter()
         stacked: dict[str, torch.Tensor] = {}
         for key in segments[0]:
             arrs = [s[key] for s in segments]
@@ -750,7 +818,10 @@ class ComputeNode:
         t0 = time.perf_counter()
         res = self._apply(stacked)
         res = {k: v.cpu().numpy()[:total] for k, v in res.items()}  # block
-        return res, time.perf_counter() - t0
+        t1 = time.perf_counter()
+        if self.spans.on:
+            self._span("compute", t_in, t1, extents)
+        return res, t1 - t0
 
     def _compute_group(self, group: list[_Decoded]
                        ) -> tuple[_Computed | None, list[BatchEnvelope]]:
@@ -803,7 +874,7 @@ class ComputeNode:
             padded_rows += target
             try:
                 res, apply_s = self._stack_apply(
-                    [d.boundary for d in segs], total, target)
+                    [d.boundary for d in segs], total, target, extents)
             except Exception:
                 failures.append(BatchEnvelope(extents, b"",
                                               error=traceback.format_exc()))
@@ -886,7 +957,10 @@ class ComputeNode:
                         [e], b"", error=traceback.format_exc()))
                     continue
                 finally:
-                    compute_s += time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    compute_s += t1 - t0
+                    if self.spans.on:
+                        self._span("prefill", t0, t1, [e])
                 # park the caches even when the slice holds no stateful
                 # layer (caches == {}): residency doubles as the routing
                 # check a later step validates against
@@ -937,18 +1011,29 @@ class ComputeNode:
             pos = torch.tensor([e.pos for e, _, _ in batch],
                                dtype=torch.int32, device=dev)
             caches = _stack_trees([c for _, _, c in batch])
+            t1 = time.perf_counter()
             y, new = self._decode_apply(caches, xs, pos)
+            t2 = time.perf_counter()
             y = y.cpu().numpy()
         except Exception:
             tb = traceback.format_exc()
             return [], [BatchEnvelope([e], b"", error=tb)
                         for e, _, _ in wave], time.perf_counter() - t0
-        compute_s = time.perf_counter() - t0
+        t3 = time.perf_counter()
         outs = []
         for i, (e, _, _) in enumerate(wave):
             self.sessions.put(e.session, _row_tree(new, i))
             outs.append(([e], {out_name: y[i:i + 1]}))
-        return outs, [], compute_s
+        t4 = time.perf_counter()
+        phases = tuple(zip(STEP_PHASES, (t0, t1, t2, t3), (t1, t2, t3, t4)))
+        with self._stats_lock:
+            for p, a, b in phases:
+                self.step_s[p] += b - a
+        if self.spans.on:
+            steps = [e for e, _, _ in wave]
+            for p, a, b in phases:
+                self._span(f"step.{p}", a, b, steps)
+        return outs, [], t3 - t0
 
     # -- stage 3: egress (encode once per bucket, relay) ----------------------
     def _relay(self, item: Any) -> None:
@@ -964,6 +1049,8 @@ class ComputeNode:
         instead of the request silently hanging."""
         if self.next_inbox is None:
             return
+        if isinstance(item, BatchEnvelope):
+            item.t_put = time.perf_counter()
         try:
             self.next_inbox.send(item)
         except (ChannelClosed, OSError):
@@ -1002,12 +1089,16 @@ class ComputeNode:
                     self._inflight_n -= len(item.extents)
                 self._relay(item)
                 continue
+            extents_all = [e for ext, _ in item.buckets for e in ext]
+            waits = self._waited("to_encode", item.t_put, extents_all)
             # book only codec time as encode busy; the relay puts can block
             # on the next node's bounded inbox (backpressure, not work)
             enc_busy = 0.0
             out_envs: list[BatchEnvelope] = []
+            first = None
             for extents, res in item.buckets:
                 t0 = time.perf_counter()
+                first = t0 if first is None else first
                 try:
                     blob, rec = self.data_codec.encode_tree(
                         res, "data", request_id=extents[0].request_id,
@@ -1021,14 +1112,21 @@ class ComputeNode:
                     env = BatchEnvelope(extents, b"",
                                         error=traceback.format_exc(),
                                         epoch=self._egress_epoch)
-                enc_busy += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                enc_busy += t1 - t0
                 out_envs.append(env)
             with self._stats_lock:
                 self.busy_encode_s += enc_busy
+                self.wait_s["to_encode"] += waits
                 self._record_trace(item.trace)
                 self._inflight_n -= sum(len(e.extents) for e in out_envs)
+            if self.spans.on and first is not None:
+                self._span("encode", first, t1, extents_all)
+            t0 = time.perf_counter()
             for env in out_envs:
                 self._relay(env)
+            if self.spans.on:
+                self._span("relay", t0, time.perf_counter(), extents_all)
 
     # -- unstaged path (the PR 1 baseline, kept for A/B benchmarks) -----------
     def _legacy_loop(self) -> None:
@@ -1142,7 +1240,8 @@ class ComputeNode:
             padded_rows += target
             try:
                 outs, apply_s = self._stack_apply(
-                    [b for _, b in bucket], total, target)
+                    [b for _, b in bucket], total, target,
+                    [ext for ext, _ in bucket])
                 compute_total += apply_s
             except Exception:
                 tb = traceback.format_exc()

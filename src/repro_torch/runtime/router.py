@@ -62,6 +62,7 @@ from collections import deque
 from typing import TYPE_CHECKING
 
 from repro_torch.runtime.node import _RETIRE, _STOP, ComputeNode
+from repro_torch.runtime.spans import SpanLog
 from repro_torch.runtime.transport import Channel, ChannelClosed
 from repro_torch.runtime.wire import (K_CLOSE, K_OPEN, K_STEP, BatchEnvelope,
                                       ReconfigMarker)
@@ -124,7 +125,8 @@ class StageGroup:
     def __init__(self, index: int, spec: "StageSpec",
                  replicas: list[ComputeNode], input_channel: Channel,
                  upstream: "StageGroup | None",
-                 fail_batch=None, note_displaced=None):
+                 fail_batch=None, note_displaced=None,
+                 spans: SpanLog | None = None):
         self.index = index
         self.spec = spec
         self.replicas = replicas            # all live replicas (stats view)
@@ -141,6 +143,9 @@ class StageGroup:
         # died), so their KV caches at this stage are gone — the
         # dispatcher flags them for session-layer re-prefill
         self.note_displaced = note_displaced
+        # the dispatcher's span log: one ``defer.route.s{i}`` span an
+        # envelope routed
+        self.spans = spans if spans is not None else SpanLog()
         # epoch -> (markers the DOWNSTREAM barrier must count, members
         # remaining after the fence).  Written before the broadcast, read
         # by the next router / the collector when its barrier trips.
@@ -185,7 +190,8 @@ class StageGroup:
     def start(self) -> None:
         if self._thread is not None and self._thread.is_alive():
             return
-        self._thread = threading.Thread(target=self._route_loop, daemon=True)
+        self._thread = threading.Thread(target=self._route_loop, daemon=True,
+                                        name=f"defer-route-s{self.index}")
         self._thread.start()
 
     @property
@@ -239,6 +245,7 @@ class StageGroup:
         sent_tokens: dict[int, list] = {}
         rr = 0
         current_epoch = 0
+        span_name = f"defer.route.s{self.index}"
         tally = FenceTally(self.upstream_members())
         held: list[BatchEnvelope] = []
         # decode-session stickiness: session id -> the member holding its
@@ -531,7 +538,8 @@ class StageGroup:
                 held.append(env)            # post-fence overtaker: hold at
                 continue                    # the barrier
             try:
-                route(env)
+                with self.spans.span(span_name, env.extents, self.index):
+                    route(env)
             except Exception as exc:
                 # fail exactly this batch's futures and keep routing —
                 # a dying router would silently hang every client

@@ -183,8 +183,9 @@ class WorkerHandle:
         self._progress_at = time.monotonic()
         self._backlog_since: float | None = None    # monitor-thread only
         self._fwd_tokens = 0            # control tokens relayed downstream
-        self._relay_thread = threading.Thread(target=self._relay_loop,
-                                              daemon=True)
+        self._relay_thread = threading.Thread(
+            target=self._relay_loop, daemon=True,
+            name=f"defer-s{self.index}r{self.replica}-relay")
         self._threads = [self._relay_thread]    # live_replicas() prunes on
         self._relay_thread.start()              # these, like a real node
         self.next_inbox = None
@@ -232,8 +233,9 @@ class WorkerHandle:
     def _attach_control(self, conn: socket.socket) -> None:
         self._csock = conn
         self._hb_at = time.monotonic()
-        self._creader = threading.Thread(target=self._control_loop,
-                                         daemon=True)
+        self._creader = threading.Thread(
+            target=self._control_loop, daemon=True,
+            name=f"defer-s{self.index}r{self.replica}-control")
         self._creader.start()
         self._hello.set()
 
@@ -556,7 +558,8 @@ class Supervisor:
             s.close()
             raise
         self._csock = s
-        threading.Thread(target=self._accept_loop, daemon=True).start()
+        threading.Thread(target=self._accept_loop, daemon=True,
+                         name="defer-supervisor-accept").start()
 
     # -- context manager -------------------------------------------------------
     def __enter__(self) -> "Supervisor":
@@ -582,7 +585,8 @@ class Supervisor:
         handle = self._spawn(dispatcher, stage, replica)
         if self._monitor is None:
             self._monitor = threading.Thread(target=self._monitor_loop,
-                                             daemon=True)
+                                             daemon=True,
+                                             name="defer-supervisor-monitor")
             self._monitor.start()
         hook = self.on_spawned
         if hook is not None:
@@ -795,7 +799,8 @@ class Supervisor:
                 return          # an active respawner will see the deficit
             self._respawning.add(h.index)
         t = threading.Thread(target=self._respawn_loop, args=(h.index,),
-                             daemon=True)
+                             daemon=True,
+                             name=f"defer-supervisor-respawn-s{h.index}")
         with self._lock:
             self._respawners.append(t)
         t.start()
@@ -819,7 +824,8 @@ class Supervisor:
 
         # fire-and-forget: the head channel is bounded, and the monitor
         # must never block behind a backlogged chain
-        threading.Thread(target=poke, daemon=True).start()
+        threading.Thread(target=poke, daemon=True,
+                         name="defer-supervisor-probe").start()
 
     def _respawn_loop(self, stage: int) -> None:
         """Re-grow ``stage`` to its topology target through the standard

@@ -272,11 +272,13 @@ class TcpChannel(Channel):
     # -- wiring (transport-internal) ------------------------------------------
     def _open_send_side(self, sock: socket.socket) -> None:
         self._send_sock = sock
-        threading.Thread(target=self._credit_loop, daemon=True).start()
+        threading.Thread(target=self._credit_loop, daemon=True,
+                         name="defer-tcp-credit").start()
 
     def _attach(self, conn: socket.socket) -> None:
         self._recv_sock = conn
-        threading.Thread(target=self._read_loop, daemon=True).start()
+        threading.Thread(target=self._read_loop, daemon=True,
+                         name="defer-tcp-read").start()
         self._attached.set()
 
     def _credit_loop(self) -> None:
@@ -440,7 +442,8 @@ class TcpTransport(Transport):
                 s.close()
                 raise
             self._listener = s
-            threading.Thread(target=self._accept_loop, daemon=True).start()
+            threading.Thread(target=self._accept_loop, daemon=True,
+                             name="defer-tcp-accept").start()
 
     def _accept_loop(self) -> None:
         while True:
@@ -673,7 +676,8 @@ class LinkChannel(Channel):
         self._ready: deque = deque()        # (ready_at, item), ready_at asc
         self._last_ready = 0.0
         self._killed = False
-        threading.Thread(target=self._xmit_loop, daemon=True).start()
+        threading.Thread(target=self._xmit_loop, daemon=True,
+                         name="defer-link-xmit").start()
 
     def _xmit_loop(self) -> None:
         while True:

@@ -183,6 +183,11 @@ class BatchEnvelope:
     # envelope stamped ahead of its own epoch until the fence barrier
     # completes — no request ever sees a mixed-epoch chain.
     epoch: int = 0
+    # perf_counter reading of its last put into an in-process queue, for
+    # the queue waits (runtime/spans.py); never framed, so an envelope
+    # that crossed a socket reads 0
+    t_put: float = dataclasses.field(default=0.0, compare=False,
+                                     repr=False)
 
     @property
     def n(self) -> int:

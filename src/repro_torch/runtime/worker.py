@@ -200,8 +200,10 @@ class Worker:
 
     def _on_start(self) -> None:
         self._node.start()
-        threading.Thread(target=self._heartbeat_loop, daemon=True).start()
-        threading.Thread(target=self.drain, daemon=True).start()
+        threading.Thread(target=self._heartbeat_loop, daemon=True,
+                         name="defer-worker-heartbeat").start()
+        threading.Thread(target=self.drain, daemon=True,
+                         name="defer-worker-drain").start()
         self._send(ControlFrame("ready", {"pid": os.getpid(),
                                           **self._status()}))
 
