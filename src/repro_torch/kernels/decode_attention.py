@@ -26,11 +26,16 @@ A wrapper given CPU tensors runs the plain PyTorch version
 it launches the kernel or raises (as it does under autograd with an input
 that requires grad: the kernel has no backward).  ``launches`` counts kernel launches
 only, and ``launches_by_shape`` the same launches by (B, H, kv, hd, C);
-``plain_calls`` counts the CPU path.
+``plain_calls`` counts the CPU path.  A call made while its thread captures
+a CUDA graph (inside :func:`capturing`) launches nothing: it counts in the
+capture's own tally, which :func:`replayed` adds to the counters at each
+replay of the graph.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -65,6 +70,28 @@ def reset_counts() -> None:
     launches["decode_attention"] = 0
     launches_by_shape.clear()
     plain_calls["decode_attention"] = 0
+
+
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """While this thread captures a CUDA graph: yields the tally, by (B, H,
+    kv, hd, C), of the launches the graph will make at each replay."""
+    tally: dict[tuple[int, ...], int] = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def replayed(tally: dict[tuple[int, ...], int]) -> None:
+    """Count one replay of a graph whose capture recorded ``tally``."""
+    for shape, n in tally.items():
+        launches["decode_attention"] += n
+        launches_by_shape[shape] = launches_by_shape.get(shape, 0) + n
 
 
 _LIB: ctypes.CDLL | None = None
@@ -190,7 +217,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"decode_attention: CUDA launch failed with "
                            f"error {err}")
-    launches["decode_attention"] += 1
     shape = (B, H, kv, hd, C)
-    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[shape] = tally.get(shape, 0) + 1
+    else:
+        launches["decode_attention"] += 1
+        launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return out

@@ -39,7 +39,9 @@ that oversubscription honestly to avoid tuning against a saturated lie.
 The report also reads, over the window, the CPU time of every thread the
 chain started (``thread_cpu_s``, by thread name) beside the whole
 process's, and the decode steps' waits in each queue (``step_wait_s``);
-each replica's entry splits its decode steps' time into phases.
+each replica's entry splits its decode steps' time into phases and counts
+its steps by how they ran (``step_graph_replays``, ``step_eager_steps``,
+``step_graph_captures``, ``step_graph_failures``).
 ``start_spans`` / ``stop_spans`` record the chain's spans
 (:mod:`repro_torch.runtime.spans`), off otherwise.
 
@@ -342,6 +344,7 @@ class InferenceEngine:
                     busy_enc = node.busy_encode_s
                     # a process-backed replica reports neither
                     step = dict(getattr(node, "step_s", {}))
+                    counts = dict(getattr(node, "step_counts", {}))
                     for q, w in getattr(node, "wait_s", {}).items():
                         k = f"s{node.index}.{q}"
                         waits[k] = waits.get(k, 0.0) + w
@@ -415,8 +418,10 @@ class InferenceEngine:
                     "queue_depth_max": max(depths) if depths else 0,
                     "batch_mean": (float(np.mean([t.n for t in tr])) if tr
                                    else 0.0),
-                    # window totals of the decode steps' phases
+                    # window totals of the decode steps' phases, and of
+                    # the steps by how they ran
                     **{f"step_{p}_s": v for p, v in step.items()},
+                    **counts,
                 })
                 stage_service = max(stage_service, service)
                 total_payload += payload

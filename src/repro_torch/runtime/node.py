@@ -42,9 +42,11 @@ can report the paper's metrics (compute, overhead, payload) plus the
 serving ones (per-stage utilization, queue depth, batch occupancy) from
 *real* execution — and so the codec/compute overlap is directly measurable.
 A decode step's time is split into its phases (``step_s``: stack, launch,
-sync, unstack) and the decode steps' time in the three queues is summed
-(``wait_s``), both over the window; with the dispatcher's span log on, the
-same readings become spans (:mod:`repro_torch.runtime.spans`).
+sync, unstack), its steps are counted by how they ran (``step_counts``:
+replayed as a CUDA graph, or eagerly; :mod:`repro_torch.runtime.step_graph`),
+and the decode steps' time in the three queues is summed (``wait_s``), all
+over the window; with the dispatcher's span log on, the same readings become
+spans (:mod:`repro_torch.runtime.spans`).
 """
 from __future__ import annotations
 
@@ -62,6 +64,8 @@ from repro_torch.core.graph import LayerGraph, LayerNode, tree_bytes
 from repro_torch.device import get_device
 from repro_torch.runtime.session import SessionStore
 from repro_torch.runtime.spans import WORK, SpanLog, waited
+from repro_torch.runtime.step_graph import (CAPTURED, EAGER, FAILED, REPLAY,
+                                            StepStaging, signature)
 from repro_torch.runtime.transport import Channel, ChannelClosed, InprocChannel
 # _STOP / _RETIRE live in wire.py so the byte framing can map them to
 # dedicated frame types (a socket transport must carry them too); they are
@@ -114,6 +118,14 @@ class _Computed:
 
 # a decode step's phases, in order (ComputeNode._step_wave)
 STEP_PHASES = ("stack", "launch", "sync", "unstack")
+# a replica's decode steps by how they ran: replayed as its CUDA graph, run
+# eagerly (captures included), graphs captured, captures that raised
+STEP_COUNTS = ("step_graph_replays", "step_eager_steps",
+               "step_graph_captures", "step_graph_failures")
+_COUNTED = {REPLAY: ("step_graph_replays",),
+            EAGER: ("step_eager_steps",),
+            CAPTURED: ("step_eager_steps", "step_graph_captures"),
+            FAILED: ("step_eager_steps", "step_graph_failures")}
 # a replica's queues, each closed by the take of the thread it feeds
 QUEUES = ("inbox", "to_compute", "to_encode")
 
@@ -131,13 +143,6 @@ def _signature(boundary: dict[str, np.ndarray]) -> tuple:
     free to differ — ragged requests concatenate along axis 0."""
     return tuple(sorted((k, v.shape[1:], str(v.dtype))
                         for k, v in boundary.items()))
-
-
-def _stack_trees(trees: list) -> Any:
-    """Concatenate matching nested dicts of tensors along axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
-    return torch.cat(trees, dim=0)
 
 
 def _row_tree(tree: Any, i: int) -> Any:
@@ -224,6 +229,7 @@ class ComputeNode:
         # window totals: a decode step's phases (s), and the decode steps'
         # waits in each queue (s times steps)
         self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
+        self.step_counts = dict.fromkeys(STEP_COUNTS, 0)
         self.wait_s = dict.fromkeys(QUEUES, 0.0)
         # the dispatcher's span log (its own, off, for a node built alone)
         self.spans = spans if spans is not None else SpanLog()
@@ -248,6 +254,9 @@ class ComputeNode:
         self._prefill_apply = None
         self._decode_apply = None
         self._step_rows = 1
+        # the decode step's buffers (and CUDA graph), built at the first
+        # step after each _make_apply; compute thread only
+        self._staging: StepStaging | None = None
         self._is_tail = False
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
@@ -377,6 +386,8 @@ class ComputeNode:
         # one inbound and one outbound boundary activation.
         self._prefill_apply = None
         self._decode_apply = None
+        # new params or layers: a graph over the old ones must never replay
+        self._staging = None
         graph = self._graph
         if (graph is None or not graph.decode_capable or not nodes
                 or len(self._required) != 1 or len(exported) != 1):
@@ -484,6 +495,7 @@ class ComputeNode:
                 loop()
             finally:
                 self.sessions.clear()
+                self._staging = None
         return run
 
     def stop(self) -> None:
@@ -516,6 +528,7 @@ class ComputeNode:
             self.busy_compute_s = 0.0
             self.busy_encode_s = 0.0
             self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
+            self.step_counts = dict.fromkeys(STEP_COUNTS, 0)
             self.wait_s = dict.fromkeys(QUEUES, 0.0)
 
     def _waited(self, queue_name: str, t_put: float, extents) -> float:
@@ -995,24 +1008,28 @@ class ComputeNode:
     def _step_wave(self, wave: list[tuple[RowExtent, np.ndarray, Any]],
                    rows: int, out_name: str
                    ) -> tuple[list, list[BatchEnvelope], float]:
-        """One step apply over ``wave``'s sessions at ``rows`` rows.
+        """One step apply over ``wave``'s sessions at ``rows`` rows, on this
+        replica's :class:`StepStaging` (on a CUDA device, a replay of its
+        graph after the first step).
 
-        The wave is padded by repeating its last row (token, position AND
-        caches); the padded rows' outputs are dropped.  Each session keeps
-        its own cache storage: a row of the stacked result is cloned, so
-        no session pins the whole wave's batched cache."""
-        pad = [wave[-1]] * (rows - len(wave))
-        batch = wave + pad
-        dev = self.device
+        The sessions' caches are copied into the staging's first rows; the
+        wave is padded by repeating its last row's token and position, and
+        the padded rows' outputs are dropped.  Each session keeps its own
+        cache storage: a row of the step's caches is cloned."""
+        batch = wave + [wave[-1]] * (rows - len(wave))
         t0 = time.perf_counter()
         try:
-            xs = torch.from_numpy(
-                np.concatenate([x for _, x, _ in batch], axis=0)).to(dev)
-            pos = torch.tensor([e.pos for e, _, _ in batch],
-                               dtype=torch.int32, device=dev)
-            caches = _stack_trees([c for _, _, c in batch])
+            _, x0, c0 = wave[0]
+            if self._staging is None \
+                    or self._staging.key != signature(c0, x0):
+                self._staging = StepStaging(self._decode_apply, rows, c0, x0,
+                                            self.device)
+            self._staging.stage(
+                [c for _, _, c in wave],
+                np.concatenate([x for _, x, _ in batch], axis=0),
+                [e.pos for e, _, _ in batch])
             t1 = time.perf_counter()
-            y, new = self._decode_apply(caches, xs, pos)
+            y, new, how = self._staging.step()
             t2 = time.perf_counter()
             y = y.cpu().numpy()
         except Exception:
@@ -1029,6 +1046,8 @@ class ComputeNode:
         with self._stats_lock:
             for p, a, b in phases:
                 self.step_s[p] += b - a
+            for k in _COUNTED[how]:
+                self.step_counts[k] += 1
         if self.spans.on:
             steps = [e for e, _, _ in wave]
             for p, a, b in phases:
