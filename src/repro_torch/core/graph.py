@@ -20,7 +20,9 @@ change a layout there (the CNN convolutions go HWIO -> OIHW) — and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import zlib
 from typing import Any, Callable, Iterator, Mapping, Sequence
 
@@ -110,15 +112,60 @@ def to_tensor(leaf: Any, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class LayerDecode:
-    """Autoregressive view of a stateful layer (attention with a KV cache).
+    """Autoregressive view of a layer: a stateful one (attention with a KV
+    cache), or one whose step differs from its prefill (routed experts,
+    whose cache is ``{}``).
 
-    ``repro_torch.models.lm_graph`` builds one per attention block; the
-    compute node runs ``prefill_fn`` when a session opens and ``step_fn``
-    for each later token, with the caches resident on the replica.
+    ``repro_torch.models.lm_graph`` builds one per attention block and per
+    routed-expert block; the compute node runs ``prefill_fn`` when a
+    session opens and ``step_fn`` for each later token, with the caches
+    resident on the replica.
     """
 
     prefill_fn: Callable[..., Any]         # (params, x) -> (y, cache)
     step_fn: Callable[..., Any]            # (params, cache, x, pos) -> (y, new_cache)
+
+
+@dataclasses.dataclass
+class StepRows:
+    """What a decode step's layers may read beside their inputs: ``live``
+    [rows] int32 on the step's device, 1 where the row is a session's and
+    0 where it pads the step, and ``tallies``, int64 device counters by
+    name and layer that the layers add into."""
+
+    live: torch.Tensor
+    tallies: dict[str, dict[str, torch.Tensor]]
+
+    def tally(self, counter: str, layer: str,
+              shape: tuple[int, ...] = ()) -> torch.Tensor:
+        """Layer ``layer``'s ``counter``, zeros of ``shape`` at its first
+        use (an eager step's: a CUDA graph's capture then adds into it)."""
+        by_layer = self.tallies.setdefault(counter, {})
+        t = by_layer.get(layer)
+        if t is None:
+            t = by_layer[layer] = torch.zeros(
+                shape, dtype=torch.int64, device=self.live.device)
+        return t
+
+
+_STEP = threading.local()
+
+
+@contextlib.contextmanager
+def step_rows(rows: StepRows) -> Iterator[None]:
+    """Steps applied inside (on this thread) see ``rows``."""
+    prev = getattr(_STEP, "rows", None)
+    _STEP.rows = rows
+    try:
+        yield
+    finally:
+        _STEP.rows = prev
+
+
+def current_step_rows() -> StepRows | None:
+    """The :class:`StepRows` of the step being applied on this thread, or
+    None outside a replica's step."""
+    return getattr(_STEP, "rows", None)
 
 
 @dataclasses.dataclass

@@ -64,7 +64,7 @@ def ep_unit_fn(cfg: ModelConfig, unroll: bool = False):
         kvl = max(1, cfg.kv_heads // ax)
         s_local = AttnSpec(d, Hl, kvl, hd)             # local-head view
         C = min(s_local.q_chunk, S)
-        if S % C:
+        if S % C:                     # one chunk, as the reference's EP unit
             C = S
         partial = []
         for lp in lps:
@@ -74,9 +74,7 @@ def ep_unit_fn(cfg: ModelConfig, unroll: bool = False):
             v = (h @ a["wv"]["w"]).reshape(mb, S, kvl, hd)
             q = L.apply_rope(q, pos, cfg.rope_theta)
             k = L.apply_rope(k, pos, cfg.rope_theta)
-            qs = q.reshape(mb, S // C, C, Hl, hd)
-            o = _chunked_attention(qs, k, v, pos.reshape(mb, S // C, C), pos,
-                                   s_local, scale, C)
+            o = _chunked_attention(q, k, v, pos, pos, s_local, scale, C)
             partial.append(o.reshape(mb, S, Hl * hd) @ a["wo"]["w"])
         x = x + functools.reduce(torch.add, partial)   # psum, shard order
         # -- MoE, tokens split over the expert axis ------------------------

@@ -20,8 +20,8 @@ import torch
 from repro_torch.device import get_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import INV127
-from repro_torch.models.layers import (apply_rope, init_linear, init_rmsnorm,
-                                       linear, rmsnorm)
+from repro_torch.models.layers import (Yarn, apply_rope, init_linear,
+                                       init_rmsnorm, linear, rmsnorm)
 
 NEG_INF = -1e30
 
@@ -36,6 +36,7 @@ class AttnSpec:
     window: int | None = None        # sliding window (tokens), None = global
     causal: bool = True
     q_chunk: int = 1024              # chunking for memory-bounded attention
+    yarn: Yarn | None = None         # YaRN's rescaling of RoPE, None = plain
 
 
 def init_attn(rng: np.random.Generator, s: AttnSpec, dtype) -> dict:
@@ -53,8 +54,8 @@ def _project_qkv(p, s: AttnSpec, x, positions):
     q = linear(p["wq"], x).reshape(B, S, s.num_heads, s.head_dim)
     k = linear(p["wk"], x).reshape(B, S, s.kv_heads, s.head_dim)
     v = linear(p["wv"], x).reshape(B, S, s.kv_heads, s.head_dim)
-    q = apply_rope(q, positions, s.rope_theta)
-    k = apply_rope(k, positions, s.rope_theta)
+    q = apply_rope(q, positions, s.rope_theta, s.yarn)
+    k = apply_rope(k, positions, s.rope_theta, s.yarn)
     return q, k, v
 
 
@@ -80,74 +81,71 @@ def attention(p: dict, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
     scale with S * window, not S^2.  (``kv_override`` is accepted, and
     ignored, as in the reference.)
     """
+    return attention_kv(p, s, x, positions, eps)[0]
+
+
+def attention_kv(p: dict, s: AttnSpec, x: torch.Tensor,
+                 positions: torch.Tensor, eps: float = 1e-5):
+    """:func:`attention`'s output with the keys (after RoPE) and values
+    it attended over: (y, k [B,S,kv,hd], v [B,S,kv,hd])."""
     B, S, _ = x.shape
     h = rmsnorm(p["ln"], x, eps)
     q, k, v = _project_qkv(p, s, h, positions)
     scale = 1.0 / np.sqrt(s.head_dim)
 
-    C = min(s.q_chunk, S)
-    if S % C != 0:  # small/smoke shapes: single chunk
-        C = S
-    nq = S // C
-    qs = q.reshape(B, nq, C, s.num_heads, s.head_dim)
-    pos_q = positions.reshape(B, nq, C) if positions.dim() == 2 else \
-        positions.reshape(nq, C)[None].expand(B, nq, C)
+    C = min(s.q_chunk, S)                 # the last chunk may be shorter
+    if positions.dim() == 1:
+        positions = positions[None].expand(B, S)
 
     if s.window is not None and s.window < S:
-        out = _banded_attention(qs, k, v, pos_q, positions, s, scale, C)
+        out = _banded_attention(q, k, v, positions, positions, s, scale, C)
     else:
-        out = _chunked_attention(qs, k, v, pos_q, positions, s, scale, C)
+        out = _chunked_attention(q, k, v, positions, positions, s, scale, C)
     out = out.reshape(B, S, s.num_heads * s.head_dim)
-    return x + linear(p["wo"], out)
+    return x + linear(p["wo"], out), k, v
 
 
-def _chunked_attention(qs, k, v, pos_q, pos_k, s, scale, C):
-    """Loop over query chunks; each sees the full K (causal-masked)."""
-    B = qs.shape[0]
-    if pos_k.dim() == 1:
-        pos_k = pos_k[None].expand(B, pos_k.shape[0])
+def _chunked_attention(q, k, v, pos_q, pos_k, s, scale, C):
+    """Loop over query chunks of C rows (the last may hold fewer); each
+    sees the full K (causal-masked).  q [B,S,H,hd], pos_q / pos_k [B,S]
+    -> [B,S,H,hd]."""
+    B, S = q.shape[:2]
     outs = []
-    for i in range(qs.shape[1]):
-        qc, pq = qs[:, i], pos_q[:, i]            # [B,C,H,hd], [B,C]
+    for a in range(0, S, C):
+        qc, pq = q[:, a:a + C], pos_q[:, a:a + C]   # [B,c,H,hd], [B,c]
         if s.causal:
             mask = pq[:, :, None] >= pos_k[:, None, :]
         else:
-            mask = torch.ones((B, C, pos_k.shape[1]), dtype=torch.bool,
-                              device=qc.device)
+            mask = torch.ones((B, qc.shape[1], pos_k.shape[1]),
+                              dtype=torch.bool, device=qc.device)
         outs.append(_sdpa(qc, k, v, mask, scale))
-    return torch.stack(outs, dim=1)               # [B,nq,C,H,hd]
+    return torch.cat(outs, dim=1)
 
 
-def _banded_attention(qs, k, v, pos_q, pos_k, s, scale, C):
-    """Sliding window: q chunk i attends only to k chunks [i-nb+1 .. i].
+def _banded_attention(q, k, v, pos_q, pos_k, s, scale, C):
+    """Sliding window: q chunk i attends only to k chunks [i-nb+1 .. i]
+    (chunks of C positions, the last may hold fewer; a chunk before the
+    first is chunk 0 again, masked out).
 
     nb = ceil(window/C) + 1 chunks; FLOPs ~ S * (nb*C) instead of S^2.
     """
-    B, nq, _, H, hd = qs.shape
-    S = k.shape[1]
+    B, S = q.shape[:2]
     nb = int(np.ceil(s.window / C)) + 1
-    kc = k.reshape(B, nq, C, s.kv_heads, hd)
-    vc = v.reshape(B, nq, C, s.kv_heads, hd)
-    pos_kc = (pos_k if pos_k.dim() == 2 else pos_k[None].expand(B, S)
-              ).reshape(B, nq, C)
-
-    dev = qs.device
-    idx = torch.arange(nq, device=dev)[:, None] \
-        - torch.arange(nb - 1, -1, -1, device=dev)[None, :]       # [nq,nb]
-    valid_chunk = idx >= 0
-    idx = idx.clamp(0, nq - 1)
-
+    dev = q.device
+    step = torch.arange(C, device=dev)
     outs = []
-    for i in range(nq):
-        qc, pq, band_idx, bvalid = qs[:, i], pos_q[:, i], idx[i], valid_chunk[i]
-        kb = kc[:, band_idx].reshape(B, nb * C, s.kv_heads, hd)
-        vb = vc[:, band_idx].reshape(B, nb * C, s.kv_heads, hd)
-        pb = pos_kc[:, band_idx].reshape(B, nb * C)
+    for i, a in enumerate(range(0, S, C)):
+        qc, pq = q[:, a:a + C], pos_q[:, a:a + C]
+        band = torch.arange(i - nb + 1, i + 1, device=dev)
+        m = (nb - 1) * C + qc.shape[1]        # chunk i itself ends at S
+        slots = (band.clamp(min=0)[:, None] * C + step).reshape(-1)[:m]
+        bvalid = (band >= 0).repeat_interleave(C)[:m]
+        kb, vb, pb = k[:, slots], v[:, slots], pos_k[:, slots]
         delta = pq[:, :, None] - pb[:, None, :]
         mask = (delta >= 0) & (delta < s.window)
-        mask &= torch.repeat_interleave(bvalid, C)[None, None, :]
+        mask &= bvalid[None, None, :]
         outs.append(_sdpa(qc, kb, vb, mask, scale))
-    return torch.stack(outs, dim=1)
+    return torch.cat(outs, dim=1)
 
 
 # -- cross attention (enc-dec) --------------------------------------------------
@@ -238,8 +236,8 @@ def attention_decode(p: dict, s: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
     q = linear(p["wq"], h).reshape(B, 1, s.num_heads, s.head_dim)
     k = linear(p["wk"], h).reshape(B, 1, s.kv_heads, s.head_dim)
     v = linear(p["wv"], h).reshape(B, 1, s.kv_heads, s.head_dim)
-    q = apply_rope(q, pos[:, None], s.rope_theta)
-    k = apply_rope(k, pos[:, None], s.rope_theta)
+    q = apply_rope(q, pos[:, None], s.rope_theta, s.yarn)
+    k = apply_rope(k, pos[:, None], s.rope_theta, s.yarn)
 
     C = cache["k"].shape[1]
     slot = (pos % C).long()                            # ring for window layers

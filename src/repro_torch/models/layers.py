@@ -9,6 +9,9 @@ apply functions take torch tensors.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -62,21 +65,54 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 # -- RoPE ----------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN's rescaling of RoPE (a config's ``rope_type: yarn`` section):
+    frequencies of fewer than ``beta_slow`` turns over the original
+    context are divided by ``factor``, those of more than ``beta_fast``
+    kept, a linear ramp between; cos and sin are scaled by
+    ``attention_factor``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
+
+
 def rope_freqs(head_dim: int, theta: float,
-               device: torch.device | str = "cpu") -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+               device: torch.device | str = "cpu",
+               yarn: Yarn | None = None) -> torch.Tensor:
+    base = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                  device=device) / head_dim)
+    if yarn is None:
+        return 1.0 / base
+    # Hugging Face transformers' _compute_yarn_parameters (truncate=True)
+    def turns_dim(turns: float) -> float:
+        return (head_dim * math.log(yarn.original_max_position_embeddings
+                                    / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    lo = max(math.floor(turns_dim(yarn.beta_fast)), 0)
+    hi = min(math.ceil(turns_dim(yarn.beta_slow)), head_dim - 1)
+    if lo == hi:
+        hi += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - lo) / (hi - lo)).clamp(0, 1)
+    keep = 1 - ramp
+    return 1.0 / (yarn.factor * base) * (1 - keep) + 1.0 / base * keep
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, yarn: Yarn | None = None) -> torch.Tensor:
     """x: [..., S, H, hd]; positions: broadcastable to [..., S].  The two
     halves of hd are rotated as pairs (not interleaved)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                      # [hd/2]
+    freqs = rope_freqs(hd, theta, x.device, yarn)                # [hd/2]
     angles = positions[..., None].to(torch.float32) * freqs      # [..., S, hd/2]
     angles = angles[..., None, :]                                # [..., S, 1, hd/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if yarn is not None:
+        cos, sin = cos * yarn.attention_factor, sin * yarn.attention_factor
     x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -30,6 +30,16 @@ know where two runs may rightly differ (another token count, so another
 capacity; a lossy relay that moves a routing decision); they change no
 result.  A unit's forward run again by activation checkpointing records
 nothing (``recording_off``).
+
+``held_experts`` and ``held_experts_step`` are a dropless layer that holds
+a contiguous share of the experts, as one chip of an expert-parallel
+deployment does: it routes over every expert (softmax, top-k, gates
+renormalised over the k) and adds only its held experts' part of the
+result.  The first gathers each held expert's tokens (a prompt's
+prefill); the second is the decode step's, at fixed shapes with no host
+sync so that a CUDA graph captures it: every held expert over every row,
+combined by weights that are zero where a row did not choose it.  Nothing
+drops: the capacity is the step's rows.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core.graph import current_step_rows
 from repro_torch.models.layers import he_init, init_rmsnorm, rmsnorm
 
 
@@ -290,3 +301,95 @@ def moe_flops(s: MoESpec, tokens: int) -> float:
     active = 2.0 * mats * s.d_model * s.d_ff * s.moe.top_k
     router = 2.0 * s.d_model * s.moe.num_experts
     return tokens * (active * s.moe.capacity_factor + router)
+
+
+# -- a held share of the experts, dropless ------------------------------------------
+
+def route_topk(p: dict, h: torch.Tensor, top_k: int):
+    """h [T, d] -> (expert_idx [T, k] over every expert of the router,
+    gates [T, k]): softmax over all of them, the top k (ties to the lower
+    index), divided by their sum."""
+    probs = torch.softmax(h @ p["router"], dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = vals[:, :top_k]
+    return order[:, :top_k], gates / gates.sum(-1, keepdim=True)
+
+
+def _swiglu(p: dict, h: torch.Tensor, e: int) -> torch.Tensor:
+    return (F.silu(h @ p["gate"][e]) * (h @ p["up"][e])) @ p["down"][e]
+
+
+def held_experts(p: dict, x: torch.Tensor, top_k: int, first: int,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """x [B,S,d] -> x + the held experts' part of the routed SwiGLU
+    experts' sum, each held expert over the tokens that chose it.
+
+    ``p``: ``ln``, ``router`` [d, E] over all E experts, and ``gate`` /
+    ``up`` [n, d, f], ``down`` [n, f, d] of experts ``[first, first + n)``."""
+    B, S, d = x.shape
+    h = rmsnorm(p["ln"], x, eps).reshape(B * S, d)
+    idx, gates = route_topk(p, h, top_k)
+    n = p["up"].shape[0]
+    local = (idx - first).reshape(-1)
+    held = (local >= 0) & (local < n)
+    # assignments grouped by held expert; one host read of the counts
+    order = torch.argsort(torch.where(held, local, n), stable=True)
+    counts = torch.bincount(local[held], minlength=n).tolist()
+    y = torch.zeros_like(h)
+    at = 0
+    for e, c in enumerate(counts):
+        if c:
+            a = order[at:at + c]
+            rows = a // top_k
+            y.index_add_(0, rows, _swiglu(p, h[rows], e)
+                         * gates.reshape(-1)[a, None])
+            at += c
+    return x + y.reshape(B, S, d)
+
+
+def held_experts_step(p: dict, x: torch.Tensor, top_k: int, first: int,
+                      name: str, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`held_experts` for a decode step's rows x [T, 1, d], at fixed
+    shapes: every held expert runs over every row, and a row's output is
+    weighted by its gate where it chose the expert and by 0 elsewhere.
+
+    Inside a replica's step (:func:`current_step_rows`) it adds layer
+    ``name``'s tallies: ``moe_rows`` [n], per held expert the live rows
+    routed to it, and ``moe_dropped``, the live rows' assignments to held
+    experts whose weight in the combine is 0 (none: a gate is positive)."""
+    T, S, d = x.shape
+    h = rmsnorm(p["ln"], x, eps).reshape(T * S, d)
+    idx, gates = route_topk(p, h, top_k)
+    n = p["up"].shape[0]
+    local = idx - first
+    held = (local >= 0) & (local < n)
+    col = torch.where(held, local, n)             # the others: a spare column
+    w = combine_weights(col, torch.where(held, gates, 0.0), n)
+    hb = h.expand(n, T * S, d)
+    a = F.silu(torch.bmm(hb, p["gate"])) * torch.bmm(hb, p["up"])
+    out = torch.bmm(a, p["down"])                 # [n, T, d]
+    y = (out * w.t()[:, :, None]).sum(0)
+    rows = current_step_rows()
+    if rows is not None:
+        chose = torch.zeros((T * S, n + 1), dtype=torch.bool,
+                            device=x.device).scatter_(1, col, held)[:, :n]
+        chose &= rows.live[:, None].bool()
+        rows.tally("moe_rows", name, (n,)).add_(chose.sum(0))
+        rows.tally("moe_dropped", name).add_((chose & (w == 0)).sum())
+    return x + y.reshape(T, S, d)
+
+
+def combine_weights(col: torch.Tensor, gates: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """[T, n]: row t's gate for held expert e where one of its k choices
+    (``col`` [T, k], n for an expert not held) is e, else 0."""
+    return gates.new_zeros((col.shape[0], n + 1)).scatter_(
+        1, col, gates)[:, :n]
+
+
+def held_experts_flops(d: int, f: int, top_k: int, num_experts: int,
+                       held: int, tokens: int) -> float:
+    """Routed work of ``held`` of ``num_experts`` experts, at their share
+    of the top-k assignments, and the router's."""
+    return tokens * 2.0 * d * (3 * f * top_k * held / num_experts
+                               + num_experts)

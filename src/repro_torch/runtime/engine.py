@@ -345,9 +345,13 @@ class InferenceEngine:
                     # a process-backed replica reports neither
                     step = dict(getattr(node, "step_s", {}))
                     counts = dict(getattr(node, "step_counts", {}))
+                    prefill = {k: getattr(node, k) for k in (
+                        "prefill_s", "prefill_tokens") if hasattr(node, k)}
                     for q, w in getattr(node, "wait_s", {}).items():
                         k = f"s{node.index}.{q}"
                         waits[k] = waits.get(k, 0.0) + w
+                tallies = (node.window_tallies()
+                           if hasattr(node, "window_tallies") else {})
                 n_req_raw = sum(t.n for t in tr)
                 n_req = n_req_raw or 1
                 compute = sum(t.compute_s for t in tr) / n_req
@@ -422,6 +426,10 @@ class InferenceEngine:
                     # the steps by how they ran
                     **{f"step_{p}_s": v for p, v in step.items()},
                     **counts,
+                    **prefill,
+                    # the decode steps' device counters over the window,
+                    # by layer (routed experts: moe_rows, moe_dropped)
+                    **tallies,
                 })
                 stage_service = max(stage_service, service)
                 total_payload += payload

@@ -231,6 +231,16 @@ class ComputeNode:
         self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
         self.step_counts = dict.fromkeys(STEP_COUNTS, 0)
         self.wait_s = dict.fromkeys(QUEUES, 0.0)
+        # window totals of the session opens' prefills: seconds (as their
+        # spans) and prompt tokens
+        self.prefill_s = 0.0
+        self.prefill_tokens = 0
+        # device counters the decode steps' layers add into, by name and
+        # layer (a routed-expert block's moe_rows and moe_dropped; see
+        # repro_torch.models.moe.held_experts_step), for the replica's
+        # life, and their readings at the window's start
+        self.step_tallies: dict[str, dict[str, torch.Tensor]] = {}
+        self._tallies0: dict[tuple[str, str], torch.Tensor] = {}
         # the dispatcher's span log (its own, off, for a node built alone)
         self.spans = spans if spans is not None else SpanLog()
         s = f"defer.s{index}"
@@ -530,6 +540,19 @@ class ComputeNode:
             self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
             self.step_counts = dict.fromkeys(STEP_COUNTS, 0)
             self.wait_s = dict.fromkeys(QUEUES, 0.0)
+            self.prefill_s = 0.0
+            self.prefill_tokens = 0
+            self._tallies0 = {(c, k): t.clone()
+                              for c, by in list(self.step_tallies.items())
+                              for k, t in list(by.items())}
+
+    def window_tallies(self) -> dict[str, dict[str, Any]]:
+        """Each step counter's additions since the window's start, by
+        layer (a read from the device: never inside a window)."""
+        base = self._tallies0
+        return {c: {k: (t - base[c, k] if (c, k) in base else t).tolist()
+                    for k, t in list(by.items())}
+                for c, by in list(self.step_tallies.items())}
 
     def _waited(self, queue_name: str, t_put: float, extents) -> float:
         """Close the wait of an item this replica's thread just took off
@@ -972,6 +995,9 @@ class ComputeNode:
                 finally:
                     t1 = time.perf_counter()
                     compute_s += t1 - t0
+                    with self._stats_lock:
+                        self.prefill_s += t1 - t0
+                        self.prefill_tokens += x.shape[1]
                     if self.spans.on:
                         self._span("prefill", t0, t1, [e])
                 # park the caches even when the slice holds no stateful
@@ -1023,7 +1049,7 @@ class ComputeNode:
             if self._staging is None \
                     or self._staging.key != signature(c0, x0):
                 self._staging = StepStaging(self._decode_apply, rows, c0, x0,
-                                            self.device)
+                                            self.device, self.step_tallies)
             self._staging.stage(
                 [c for _, _, c in wave],
                 np.concatenate([x for _, x, _ in batch], axis=0),

@@ -34,8 +34,14 @@ Only spans of this process are recorded: a process-backed replica's own
 threads record none.
 
 Whether the log is on or off, the same readings feed the window totals of
-the engine's report: each replica's decode-step phases, and the decode
-steps' waits in each queue (:func:`waited`).  :func:`thread_cpu_s` reads
+the engine's report: each replica's decode-step phases, its prefills'
+seconds and prompt tokens (``prefill_s``, ``prefill_tokens``: its
+``defer.s{i}.prefill`` spans), and the decode steps' waits in each queue
+(:func:`waited`).  A replica's routed-expert blocks count on the device,
+inside each step and so inside its CUDA graph, the live rows routed to
+each held expert (``moe_rows``, by layer) and the assignments to held
+experts that the combine weights by 0 (``moe_dropped``); the report reads them at
+the window's reset and at its end, never inside it.  :func:`thread_cpu_s` reads
 the CPU clocks of a set of threads, for its CPU by thread over the window.
 """
 from __future__ import annotations

@@ -7,7 +7,9 @@ once.  A wave's sessions' caches are copied into rows ``[0, n)`` (one
 ``torch.cat`` per leaf, into the buffer); pad rows repeat the last row's
 token and position and keep whatever caches their rows hold, since their
 outputs are dropped and no row of a step reads another (the GEMMs run at a
-fixed M, decode attention and the norms per row).
+fixed M, decode attention and the norms per row).  A mask of the live rows
+and the replica's device tallies are what the step's layers see of it
+beside their inputs (:class:`~repro_torch.core.graph.StepRows`).
 
 On a CUDA device the first step over a staging runs eagerly on a side
 stream, which serves that wave and warms cuBLAS, the kernel libraries and
@@ -26,7 +28,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.graph import (tree_flatten_with_path, tree_leaves,
+from repro_torch.core.graph import (StepRows, step_rows,
+                                    tree_flatten_with_path, tree_leaves,
                                     tree_map)
 from repro_torch.kernels import decode_attention
 
@@ -52,7 +55,8 @@ class StepStaging:
     them."""
 
     def __init__(self, apply: Callable, rows: int, caches: Any,
-                 x: np.ndarray, device: torch.device):
+                 x: np.ndarray, device: torch.device,
+                 tallies: dict | None = None):
         self.key = signature(caches, x)
         self.device = device
         self._apply = apply
@@ -63,7 +67,11 @@ class StepStaging:
             self.x = torch.zeros((rows,) + x.shape[1:],
                                  dtype=torch.from_numpy(x[:0]).dtype,
                                  device=device)
-            self.pos = torch.zeros(rows, dtype=torch.int32, device=device)
+            # the positions and the live-row mask (1 or 0), one copy in
+            self._pos_live = torch.zeros((2, rows), dtype=torch.int32,
+                                         device=device)
+            self.pos, self.live = self._pos_live
+        self._rows = StepRows(self.live, {} if tallies is None else tallies)
         self._leaves = tree_leaves(self.caches)
         self._graph: torch.cuda.CUDAGraph | None = None
         self._out: tuple | None = None
@@ -86,7 +94,8 @@ class StepStaging:
             for j, buf in enumerate(self._leaves):
                 torch.cat([r[j] for r in rows], dim=0, out=buf[:n])
             self.x.copy_(torch.from_numpy(x))
-            self.pos.copy_(torch.tensor(pos, dtype=torch.int32))
+            self._pos_live.copy_(torch.tensor(
+                [pos, [1] * n + [0] * (len(pos) - n)], dtype=torch.int32))
 
     def step(self) -> tuple[torch.Tensor, Any, str]:
         """Run the step over the buffers: (output, new caches, how).  The
@@ -97,8 +106,10 @@ class StepStaging:
             decode_attention.replayed(self._launches)
             return (*self._out, REPLAY)
         if not self.graphed:
-            return (*self._apply(self.caches, self.x, self.pos), EAGER)
-        return self._capture()
+            with step_rows(self._rows):
+                return (*self._apply(self.caches, self.x, self.pos), EAGER)
+        with step_rows(self._rows):
+            return self._capture()
 
     def _capture(self) -> tuple[torch.Tensor, Any, str]:
         cur = torch.cuda.current_stream(self.device)

@@ -124,10 +124,11 @@ def _attn_params(seed, spec):
 
 
 @pytest.mark.parametrize("q_chunk,window", [(1024, None), (4, None), (4, 6),
-                                            (8, 5)])
+                                            (8, 5), (5, None), (5, 6)])
 def test_attention_matches_jax(q_chunk, window):
-    """One chunk, several chunks (q_chunk 4 over S=16), and the banded
-    sliding-window path."""
+    """One chunk, several chunks (q_chunk 4 over S=16), the banded
+    sliding-window path, and chunks of 5 over S=16, the last of one row
+    (the reference attends such an S in one chunk)."""
     kw = dict(SPEC, q_chunk=q_chunk, window=window)
     ts, js = tattn.AttnSpec(**kw), jattn.AttnSpec(**kw)
     p = _attn_params(1, ts)
