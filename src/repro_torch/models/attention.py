@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.graph import current_step_rows
 from repro_torch.device import get_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import INV127
@@ -229,7 +230,9 @@ def attention_decode(p: dict, s: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
     buffers indexed by pos % window.  Where the reference returns updated
     copies, the port writes the new slot into ``cache``'s tensors and
     ``kpos`` in place and returns them: a copy of the whole cache per layer
-    and step would double the step's memory traffic.
+    and step would double the step's memory traffic.  Inside a replica's
+    step (:func:`~repro_torch.core.graph.current_step_rows`) only the live
+    rows write: the others' caches keep their values bit for bit.
     """
     B = x.shape[0]
     h = rmsnorm(p["ln"], x, eps)
@@ -242,19 +245,30 @@ def attention_decode(p: dict, s: AttnSpec, x: torch.Tensor, pos: torch.Tensor,
     C = cache["k"].shape[1]
     slot = (pos % C).long()                            # ring for window layers
     bidx = torch.arange(B, device=x.device)
-    kpos[bidx, slot] = pos.to(kpos.dtype)
+    # inside a replica's step the rows it does not serve are other sessions'
+    # slots of its cache pool, or empty ones: they keep what they hold
+    rows = current_step_rows()
+    keep = None if rows is None else rows.live == 0
+
+    def write(buf: torch.Tensor, new: torch.Tensor) -> None:
+        if keep is not None:
+            new = torch.where(keep.view((B,) + (1,) * (new.dim() - 1)),
+                              buf[bidx, slot], new)
+        buf[bidx, slot] = new
+
+    write(kpos, pos.to(kpos.dtype))
     if cache["k"].dtype == torch.int8:
         kq, ks = quant_rows(k[:, 0])
         vq, vs = quant_rows(v[:, 0])
-        cache["k"][bidx, slot] = kq
-        cache["v"][bidx, slot] = vq
-        cache["kscale"][bidx, slot] = ks
-        cache["vscale"][bidx, slot] = vs
+        write(cache["k"], kq)
+        write(cache["v"], vq)
+        write(cache["kscale"], ks)
+        write(cache["vscale"], vs)
         ck_f = dequant_rows(cache["k"], cache["kscale"], x.dtype)
         cv_f = dequant_rows(cache["v"], cache["vscale"], x.dtype)
     else:
-        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        write(cache["k"], k[:, 0].to(cache["k"].dtype))
+        write(cache["v"], v[:, 0].to(cache["v"].dtype))
         ck_f, cv_f = cache["k"], cache["v"]
 
     scale = 1.0 / np.sqrt(s.head_dim)

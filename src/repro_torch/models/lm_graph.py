@@ -13,7 +13,8 @@ per hop instead of the full sequence.
 Greedy decode through the distributed chain is bit-identical to
 :func:`pipeline_decode_reference` because both run the very same
 ``prefill_fn``/``step_fn`` per layer AND at the same shapes: a step always
-computes ``decode_step_rows`` rows, padded by repeating a row.  The
+computes ``decode_step_rows`` rows (the reference's all its session's, a
+replica's the rows of one bank of its cache pool, whoever holds them).  The
 reference relies on XLA computing each row of a batch alike at any batch
 size; PyTorch's CPU GEMM does not (a [1, d] @ [d, f] product and row 0
 of an [8, d] one differ in the last bits), and cuBLAS may pick another
@@ -39,8 +40,8 @@ from repro_torch.models.layers import Yarn, linear, mlp, mlp_flops, rmsnorm
 from repro_torch.models.moe import (held_experts, held_experts_flops,
                                     held_experts_step)
 
-# rows every decode step computes (sessions of one wave, padded by
-# repeating the last; more sessions take several steps of this size)
+# rows every decode step computes (a bank of a replica's cache pool, the
+# rows of the sessions it steps live; more sessions take more banks)
 DECODE_STEP_ROWS = 8
 
 

@@ -41,7 +41,9 @@ chain started (``thread_cpu_s``, by thread name) beside the whole
 process's, and the decode steps' waits in each queue (``step_wait_s``);
 each replica's entry splits its decode steps' time into phases and counts
 its steps by how they ran (``step_graph_replays``, ``step_eager_steps``,
-``step_graph_captures``, ``step_graph_failures``).
+``step_graph_captures``, ``step_graph_failures``), its cache pool's banks
+and fills (``pool_banks``, ``pool_fills``) and its steps' live rows and
+rows run (``step_live_rows``, ``step_rows_run``).
 ``start_spans`` / ``stop_spans`` record the chain's spans
 (:mod:`repro_torch.runtime.spans`), off otherwise.
 

@@ -44,6 +44,7 @@ serving ones (per-stage utilization, queue depth, batch occupancy) from
 A decode step's time is split into its phases (``step_s``: stack, launch,
 sync, unstack), its steps are counted by how they ran (``step_counts``:
 replayed as a CUDA graph, or eagerly; :mod:`repro_torch.runtime.step_graph`),
+beside the cache pool's banks and fills and the live rows of the rows run,
 and the decode steps' time in the three queues is summed (``wait_s``), all
 over the window; with the dispatcher's span log on, the same readings become
 spans (:mod:`repro_torch.runtime.spans`).
@@ -51,6 +52,7 @@ spans (:mod:`repro_torch.runtime.spans`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -65,7 +67,7 @@ from repro_torch.device import get_device
 from repro_torch.runtime.session import SessionStore
 from repro_torch.runtime.spans import WORK, SpanLog, waited
 from repro_torch.runtime.step_graph import (CAPTURED, EAGER, FAILED, REPLAY,
-                                            StepStaging, signature)
+                                            Slot, StepStaging, signature)
 from repro_torch.runtime.transport import Channel, ChannelClosed, InprocChannel
 # _STOP / _RETIRE live in wire.py so the byte framing can map them to
 # dedicated frame types (a socket transport must carry them too); they are
@@ -116,12 +118,17 @@ class _Computed:
     t_put: float = 0.0                   # put on _to_encode (perf_counter)
 
 
-# a decode step's phases, in order (ComputeNode._step_wave)
+# a decode step's phases, in order (ComputeNode._step_wave): its tokens,
+# positions and live rows copied in, the apply, its output copied out, the
+# output split by session
 STEP_PHASES = ("stack", "launch", "sync", "unstack")
 # a replica's decode steps by how they ran: replayed as its CUDA graph, run
-# eagerly (captures included), graphs captured, captures that raised
+# eagerly (captures included), graphs captured, captures that raised; its
+# cache pool's banks allocated and prefills copied into a slot; the live
+# rows and all rows its steps ran
 STEP_COUNTS = ("step_graph_replays", "step_eager_steps",
-               "step_graph_captures", "step_graph_failures")
+               "step_graph_captures", "step_graph_failures",
+               "pool_banks", "pool_fills", "step_live_rows", "step_rows_run")
 _COUNTED = {REPLAY: ("step_graph_replays",),
             EAGER: ("step_eager_steps",),
             CAPTURED: ("step_eager_steps", "step_graph_captures"),
@@ -143,13 +150,6 @@ def _signature(boundary: dict[str, np.ndarray]) -> tuple:
     free to differ — ragged requests concatenate along axis 0."""
     return tuple(sorted((k, v.shape[1:], str(v.dtype))
                         for k, v in boundary.items()))
-
-
-def _row_tree(tree: Any, i: int) -> Any:
-    """Row ``i`` of every tensor of a nested dict, each in its own storage."""
-    if isinstance(tree, dict):
-        return {k: _row_tree(v, i) for k, v in tree.items()}
-    return tree[i:i + 1].clone()
 
 
 def _pad_middle(arr: np.ndarray) -> np.ndarray:
@@ -257,16 +257,17 @@ class ComputeNode:
         self._required: list[str] = []
         self._exported: list[str] = []
         self._apply = None
-        # decode-session state: resident KV caches (device tensors) for
-        # sessions pinned to this replica (LRU-bounded — see SessionStore);
-        # prefill/step views built only when the graph is decode-capable
+        # decode-session state: each session pinned to this replica holds a
+        # slot of its cache pool (LRU-bounded — see SessionStore); prefill/
+        # step views built only when the graph is decode-capable
         self.sessions = SessionStore(session_capacity)
         self._prefill_apply = None
         self._decode_apply = None
         self._step_rows = 1
-        # the decode step's buffers (and CUDA graph), built at the first
-        # step after each _make_apply; compute thread only
-        self._staging: StepStaging | None = None
+        # the cache pool: banks of the decode step's buffers (each with its
+        # CUDA graph), one more when every slot is held; emptied by each
+        # _make_apply; compute thread only
+        self._banks: list[StepStaging] = []
         self._is_tail = False
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
@@ -364,11 +365,10 @@ class ComputeNode:
                    and n.param_bytes]
         assert not missing, f"reconfig weights diff is missing {missing}"
         self._params = params
-        # the layer slice moved: every resident KV cache is keyed to the
-        # OLD slice and is now meaningless — drop them all.  The dispatcher
-        # displaces every active session at the same fence, so their
-        # generate loops re-prefill instead of stepping into SessionLost.
-        self.sessions.clear()
+        # the layer slice moved: _make_apply drops every resident session.
+        # The dispatcher displaces every active session at the same fence,
+        # so their generate loops re-prefill instead of stepping into
+        # SessionLost.
         self._make_apply()
         self.config_records.append(WireRecord(
             "reconfig", tree_bytes(params),
@@ -390,14 +390,17 @@ class ComputeNode:
 
         # autoregressive view of the same slice: prefill walks the chain
         # once over a full prompt collecting each stateful layer's KV
-        # cache; step consumes one token per row against stacked caches
+        # cache; step consumes one token per row against a bank's caches
         # (rows may sit at different sequence positions).  Only built for
         # decode-capable graphs — a pure chain, so the slice has exactly
         # one inbound and one outbound boundary activation.
         self._prefill_apply = None
         self._decode_apply = None
-        # new params or layers: a graph over the old ones must never replay
-        self._staging = None
+        # new params or layers: every resident cache is keyed to the old
+        # ones and is now meaningless, and a graph over them must never
+        # replay — the sessions and the pool go
+        self.sessions.clear()
+        self._banks = []
         graph = self._graph
         if (graph is None or not graph.decode_capable or not nodes
                 or len(self._required) != 1 or len(exported) != 1):
@@ -505,7 +508,7 @@ class ComputeNode:
                 loop()
             finally:
                 self.sessions.clear()
-                self._staging = None
+                self._banks = []
         return run
 
     def stop(self) -> None:
@@ -927,23 +930,22 @@ class ComputeNode:
                       ) -> tuple[list, list[BatchEnvelope], float, int]:
         """Serve one merged wave's session traffic (kind != K_PLAIN).
 
-        Closes evict the session's resident caches and pass their payload
-        through untouched (each stage on the way to the tail evicts in
-        turn).  Opens run the slice's prefill individually (B=1) and park
-        the resulting caches, device tensors, in this replica's
-        :class:`SessionStore`; the tail stage trims its output to the last
-        position so only one row of logits ships.  Steps batch ACROSS
-        sessions: per-session caches stack along the leading axis,
-        positions ride per row, and one step apply serves up to
-        ``decode_step_rows`` sessions — continuous batching of decode at
+        Closes release the session's slot and pass their payload through
+        untouched (each stage on the way to the tail releases in turn).
+        Opens run the slice's prefill individually (B=1) and copy the
+        resulting caches into a slot of this replica's cache pool, which
+        the session holds in its :class:`SessionStore`; the tail stage
+        trims its output to the last position so only one row of logits
+        ships.  Steps batch ACROSS sessions: the sessions whose slots are
+        rows of one bank step in one apply of that bank, in place,
+        positions riding per row — continuous batching of decode at
         *different* sequence positions.  Every step apply computes exactly
-        ``decode_step_rows`` rows (the wave padded by repeating its last
-        row, more sessions in several applies), so a session's arithmetic
-        is the single-session reference's whatever shares its wave.  A
-        step whose session has no resident cache here (evicted,
-        repartitioned, replica restarted) fails with a ``SessionLost``
-        error envelope; recovery is the generate loop's re-prefill, never
-        a replay.
+        ``decode_step_rows`` rows, the rows of sessions not in the wave
+        and empty ones too, so a session's arithmetic is the
+        single-session reference's whatever shares its bank.  A step whose
+        session holds no slot here (evicted, repartitioned, replica
+        restarted) fails with a ``SessionLost`` error envelope; recovery is
+        the generate loop's re-prefill, never a replay.
 
         Session envelopes carry exactly one extent by protocol (routers
         pin whole envelopes; a multi-session envelope could not route
@@ -958,7 +960,7 @@ class ComputeNode:
         compute_s = 0.0
         padded = 0
         out_name = self._exported[0] if self._exported else ""
-        steps: list[tuple[RowExtent, np.ndarray, Any]] = []
+        steps: list[tuple[RowExtent, np.ndarray]] = []
         for d in group:
             if len(d.extents) != 1:
                 failures.append(BatchEnvelope(
@@ -1000,73 +1002,102 @@ class ComputeNode:
                         self.prefill_tokens += x.shape[1]
                     if self.spans.on:
                         self._span("prefill", t0, t1, [e])
-                # park the caches even when the slice holds no stateful
-                # layer (caches == {}): residency doubles as the routing
-                # check a later step validates against
-                self.sessions.put(e.session, caches)
+                # a slot even when the slice holds no stateful layer
+                # (caches == {}): residency doubles as the routing check a
+                # later step validates against, and the bank stages its
+                # steps' inputs
+                try:
+                    self.sessions.open(e.session, functools.partial(
+                        self._take_slot, caches, x[:, :1]))
+                except Exception:
+                    failures.append(BatchEnvelope(
+                        [e], b"", error=traceback.format_exc()))
+                    continue
                 padded += x.shape[0]
                 outs.append(([e], {out_name: y}))
             elif e.kind == K_STEP:
-                cache = self.sessions.get(e.session)
-                if cache is None:
-                    failures.append(BatchEnvelope([e], b"", error=(
-                        f"SessionLost: stage {self.index} replica "
-                        f"{self.replica} holds no KV cache for session "
-                        f"{e.session!r} (evicted, repartitioned, or the "
-                        "replica restarted); re-open the session from "
-                        "its retained history")))
-                    continue
-                steps.append((e, np.asarray(x), cache))
+                steps.append((e, np.asarray(x)))
             else:
                 failures.append(BatchEnvelope(
                     [e], b"",
                     error=f"unknown session frame kind {e.kind}"))
-        rows = self._step_rows
-        for i0 in range(0, len(steps), rows):
-            wave = steps[i0:i0 + rows]
-            s_out, s_fail, s_compute = self._step_wave(wave, rows, out_name)
+        # slots are looked up after the group's opens, which may have
+        # evicted a session; one step apply a bank, each slot in it once
+        waves: list[list[tuple[RowExtent, np.ndarray, Slot]]] = []
+        for e, x in steps:
+            slot = self.sessions.get(e.session)
+            if slot is None:
+                failures.append(BatchEnvelope([e], b"", error=(
+                    f"SessionLost: stage {self.index} replica "
+                    f"{self.replica} holds no KV cache for session "
+                    f"{e.session!r} (evicted, repartitioned, or the "
+                    "replica restarted); re-open the session from "
+                    "its retained history")))
+                continue
+            for wave in waves:
+                if wave[0][2].bank is slot.bank \
+                        and all(s is not slot for _, _, s in wave):
+                    wave.append((e, x, slot))
+                    break
+            else:
+                waves.append([(e, x, slot)])
+        for wave in waves:
+            s_out, s_fail, s_compute = self._step_wave(wave, out_name)
             outs.extend(s_out)
             failures.extend(s_fail)
             compute_s += s_compute
-            padded += rows
+            padded += self._step_rows
         return outs, failures, compute_s, padded
 
-    def _step_wave(self, wave: list[tuple[RowExtent, np.ndarray, Any]],
-                   rows: int, out_name: str
-                   ) -> tuple[list, list[BatchEnvelope], float]:
-        """One step apply over ``wave``'s sessions at ``rows`` rows, on this
-        replica's :class:`StepStaging` (on a CUDA device, a replay of its
-        graph after the first step).
+    def _take_slot(self, caches: Any, x: np.ndarray) -> Slot:
+        """A free slot of the pool for a session of ``caches`` (its
+        prefill's) whose steps take inputs like ``x``, holding a copy of
+        them; a new bank where every slot of this signature is held."""
+        key = signature(caches, x)
+        bank = next((b for b in self._banks if b.key == key and b.free),
+                    None)
+        if bank is None:
+            bank = StepStaging(self._decode_apply, self._step_rows, caches,
+                               x, self.device, self.step_tallies)
+            self._banks.append(bank)
+            with self._stats_lock:
+                self.step_counts["pool_banks"] += 1
+        slot = bank.take(caches)
+        with self._stats_lock:
+            self.step_counts["pool_fills"] += 1
+        return slot
 
-        The sessions' caches are copied into the staging's first rows; the
-        wave is padded by repeating its last row's token and position, and
-        the padded rows' outputs are dropped.  Each session keeps its own
-        cache storage: a row of the step's caches is cloned."""
-        batch = wave + [wave[-1]] * (rows - len(wave))
+    def _step_wave(self, wave: list[tuple[RowExtent, np.ndarray, Slot]],
+                   out_name: str
+                   ) -> tuple[list, list[BatchEnvelope], float]:
+        """One step apply over ``wave``'s sessions, whose slots are rows of
+        one bank (on a CUDA device, a replay of its graph after the first
+        step).
+
+        Each session's token and position are staged at its slot, which
+        the step marks live; the step reads and writes the live rows'
+        caches in place and leaves every other row's as they were.  A
+        session's output is its slot's row.  A step that raises leaves the
+        wave's caches undefined, so their sessions are dropped: each
+        re-prefills."""
+        bank = wave[0][2].bank
         t0 = time.perf_counter()
         try:
-            _, x0, c0 = wave[0]
-            if self._staging is None \
-                    or self._staging.key != signature(c0, x0):
-                self._staging = StepStaging(self._decode_apply, rows, c0, x0,
-                                            self.device, self.step_tallies)
-            self._staging.stage(
-                [c for _, _, c in wave],
-                np.concatenate([x for _, x, _ in batch], axis=0),
-                [e.pos for e, _, _ in batch])
+            bank.stage([s.row for _, _, s in wave],
+                       np.concatenate([x for _, x, _ in wave], axis=0),
+                       [e.pos for e, _, _ in wave])
             t1 = time.perf_counter()
-            y, new, how = self._staging.step()
+            y, how = bank.step()
             t2 = time.perf_counter()
             y = y.cpu().numpy()
         except Exception:
             tb = traceback.format_exc()
+            for e, _, _ in wave:
+                self.sessions.pop(e.session)
             return [], [BatchEnvelope([e], b"", error=tb)
                         for e, _, _ in wave], time.perf_counter() - t0
         t3 = time.perf_counter()
-        outs = []
-        for i, (e, _, _) in enumerate(wave):
-            self.sessions.put(e.session, _row_tree(new, i))
-            outs.append(([e], {out_name: y[i:i + 1]}))
+        outs = [([e], {out_name: y[s.row:s.row + 1]}) for e, _, s in wave]
         t4 = time.perf_counter()
         phases = tuple(zip(STEP_PHASES, (t0, t1, t2, t3), (t1, t2, t3, t4)))
         with self._stats_lock:
@@ -1074,6 +1105,8 @@ class ComputeNode:
                 self.step_s[p] += b - a
             for k in _COUNTED[how]:
                 self.step_counts[k] += 1
+            self.step_counts["step_live_rows"] += len(wave)
+            self.step_counts["step_rows_run"] += bank.rows
         if self.spans.on:
             steps = [e for e, _, _ in wave]
             for p, a, b in phases:

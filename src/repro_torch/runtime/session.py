@@ -11,12 +11,14 @@ of how long the sequence has grown — the whole point of distributing decode.
 Residency makes replicas stateful, which this module pays for in three
 places:
 
-* :class:`SessionStore` — the per-replica cache map (LRU-bounded so a
-  leaked session cannot pin memory forever; an evicted session is NOT an
-  error, its next step fails with ``SessionLost`` and the generate loop
-  re-prefills).  Every live store registers in a module-level WeakSet so
-  the test harness can assert session-keyed state is actually evicted on
-  session end (the per-client-GC precedent from the admission merge).
+* :class:`SessionStore` — the per-replica map of sessions to their slots
+  in the replica's cache pool (:mod:`repro_torch.runtime.step_graph`;
+  LRU-bounded so a leaked session cannot pin a slot forever; an evicted
+  session is NOT an error, its next step fails with ``SessionLost`` and
+  the generate loop re-prefills).  Every live store registers in a
+  module-level WeakSet so the test harness can assert session-keyed state
+  is actually evicted on session end (the per-client-GC precedent from
+  the admission merge).
 * sticky routing — the stage routers pin a session to the replica holding
   its cache (:mod:`repro_torch.runtime.router`); this module only *names* the
   session in each submit.
@@ -40,7 +42,7 @@ import threading
 import uuid
 import weakref
 from collections import OrderedDict
-from typing import Any, Iterator, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 
@@ -66,51 +68,66 @@ class SessionLost(RuntimeError):
 
 
 class SessionStore:
-    """Per-replica resident KV caches, keyed by session id.
+    """Per-replica resident sessions, keyed by session id: each holds its
+    slot, the row of the replica's cache pool that keeps its KV caches
+    (:class:`~repro_torch.runtime.step_graph.Slot`).
 
-    LRU-bounded: inserting past ``capacity`` evicts the least-recently
-    *stepped* session.  Eviction is safe by protocol — the evicted
-    session's next step gets a ``SessionLost`` error envelope and its
-    generate loop re-prefills — so capacity is a memory ceiling, not a
-    correctness knob.  All methods are thread-safe (the compute stage
-    writes; fences and thread exits clear)."""
+    LRU-bounded: opening a session past ``capacity`` evicts the
+    least-recently *stepped* session.  Eviction is safe by protocol — the
+    evicted session's next step gets a ``SessionLost`` error envelope and
+    its generate loop re-prefills — so capacity is a memory ceiling, not a
+    correctness knob.  Every slot the store drops (a close, an eviction,
+    a re-open, ``clear``) is released to its bank.  All methods are
+    thread-safe (the compute stage writes; fences and thread exits
+    clear)."""
 
     def __init__(self, capacity: int = 64):
         self.capacity = max(1, int(capacity))
         self._lock = threading.Lock()
-        self._caches: OrderedDict[Any, Any] = OrderedDict()
+        self._slots: OrderedDict[Any, Any] = OrderedDict()
         _LIVE_STORES.add(self)
 
-    def put(self, session: Any, cache: Any) -> None:
+    def open(self, session: Any, take: Callable[[], Any]) -> Any:
+        """Give ``session`` a new slot, ``take()``'s, after releasing the
+        one it holds and, at capacity, the least recently stepped
+        sessions' (so the new slot may reuse one of theirs)."""
         with self._lock:
-            self._caches.pop(session, None)
-            self._caches[session] = cache
-            while len(self._caches) > self.capacity:
-                self._caches.popitem(last=False)
+            old = self._slots.pop(session, None)
+            if old is not None:
+                old.release()
+            while len(self._slots) >= self.capacity:
+                self._slots.popitem(last=False)[1].release()
+            slot = self._slots[session] = take()
+            return slot
 
     def get(self, session: Any) -> Any | None:
-        """Fetch a session's caches (refreshing its LRU slot), or None."""
+        """Fetch a session's slot (refreshing its LRU place), or None."""
         with self._lock:
-            cache = self._caches.get(session)
-            if cache is not None:
-                self._caches.move_to_end(session)
-            return cache
+            slot = self._slots.get(session)
+            if slot is not None:
+                self._slots.move_to_end(session)
+            return slot
 
     def pop(self, session: Any) -> Any | None:
         with self._lock:
-            return self._caches.pop(session, None)
+            slot = self._slots.pop(session, None)
+            if slot is not None:
+                slot.release()
+            return slot
 
     def clear(self) -> None:
         with self._lock:
-            self._caches.clear()
+            for slot in self._slots.values():
+                slot.release()
+            self._slots.clear()
 
     def __len__(self) -> int:
         with self._lock:
-            return len(self._caches)
+            return len(self._slots)
 
     def keys(self) -> list[Any]:
         with self._lock:
-            return list(self._caches)
+            return list(self._slots)
 
 
 def generate_tokens(dispatcher, prompt: Sequence[int],

@@ -12,6 +12,7 @@ any routing.  The ``cuda`` case runs one period at the published widths on
 the card (this file imports no JAX): ``python -m pytest --noconftest -m
 cuda tests/test_torch_mellum2.py``.
 """
+import functools
 import math
 import threading
 
@@ -356,10 +357,12 @@ WAVES = 24
     "published", marks=pytest.mark.cuda)])
 def test_staged_steps_equal_the_eager_step_and_count_the_routing(width):
     """One period, prompts past the rings: ``WAVES`` waves of 1 to 8
-    sessions, sessions closing and opening between them.  Each staged step
-    equals the eager step bit for bit (outputs and caches), the replica's
-    ``moe_rows`` tally equals a host recount of the routing of the live
-    rows, and nothing drops.  At the published widths on the card (32 of
+    sessions of one bank of the replica's pool, a session closing and
+    another opening in its slot every fifth wave.  Each step, in place in
+    the slots, equals the eager step over the wave's slots stacked bit for
+    bit (outputs and caches), the pool counts its fills and rows, the
+    replica's ``moe_rows`` tally equals a host recount of the routing of
+    the live rows, and nothing drops.  At the published widths on the card (32 of
     64 experts held, 8,192-slot full caches, 1,024-slot rings) the first
     step captures the graph, every later one replays it, and no capture
     fails."""
@@ -408,18 +411,19 @@ def test_staged_steps_equal_the_eager_step_and_count_the_routing(width):
         n = int(rng.integers(window + 1, 3 * window))
         prompt = rng.integers(0, vocab, (1, n), dtype=np.int32)
         _, caches = node._prefill_apply(torch.from_numpy(prompt).to(dev))
-        node.sessions.put(sid, caches)
+        node.sessions.open(sid, functools.partial(
+            node._take_slot, caches, prompt[:, :1]))
         live[sid] = n
 
-    for _ in range(10):
+    for _ in range(rows):
         open_session()
+    steps = 0
     try:
         for w in range(WAVES):
-            if w % 5 == 4:
+            if w % 5 == 4:                  # one closes, one opens its slot
                 gone = sorted(live)[0]
                 node.sessions.pop(gone)
                 del live[gone]
-                open_session()
                 open_session()
             k = 1 + w % rows if w < rows else int(rng.integers(1, rows + 1))
             sids = list(rng.choice(sorted(live), size=k, replace=False))
@@ -430,9 +434,10 @@ def test_staged_steps_equal_the_eager_step_and_count_the_routing(width):
             pad = [wave[-1]] * (rows - k)
             batch = wave + pad
             stacked = {name: {leaf: torch.cat(
-                [c[name][leaf] for _, _, c in batch]) for leaf in
-                ("k", "v", "kpos")} for name in wave[0][2]
-                if wave[0][2][name]}
+                [c.bank.caches[name][leaf][c.row:c.row + 1]
+                 for _, _, c in batch]) for leaf in ("k", "v", "kpos")}
+                for name in wave[0][2].bank.caches
+                if wave[0][2].bank.caches[name]}
             x = torch.from_numpy(np.concatenate([t for _, t, _ in batch]))
             pos = torch.tensor([e.pos for e, _, _ in batch],
                                dtype=torch.int32, device=dev)
@@ -456,24 +461,26 @@ def test_staged_steps_equal_the_eager_step_and_count_the_routing(width):
             for name, idx in seen.items():
                 mine = idx[(idx >= first) & (idx < first + held)] - first
                 recount[name] += np.bincount(mine, minlength=held)
-            outs, fails, _ = node._step_wave(wave, rows, out_name)
+            outs, fails, _ = node._step_wave(wave, out_name)
+            steps += k
             assert not fails, fails[0].error
-            for i, ((e, _, _), (ext, got)) in enumerate(zip(wave, outs)):
+            for i, ((e, _, c), (ext, got)) in enumerate(zip(wave, outs)):
                 assert np.array_equal(got[out_name], want_y[i:i + 1]), w
-                mine = dict(tree_flatten_with_path(
-                    node.sessions.get(e.session)))
+                mine = dict(tree_flatten_with_path(c.bank.caches))
                 for path, t in tree_flatten_with_path(want_new):
-                    assert torch.equal(mine[path], t[i:i + 1]), (w, path)
+                    assert torch.equal(mine[path][c.row], t[i]), (w, path)
                 live[e.session] += 1
     finally:
         node.sessions.clear()
     graphed = dev.type == "cuda"
-    assert node._staging.graphed is graphed
+    assert len(node._banks) == 1 and node._banks[0].graphed is graphed
     assert node.step_counts == {
         "step_graph_replays": WAVES - 1 if graphed else 0,
         "step_eager_steps": 1 if graphed else WAVES,
         "step_graph_captures": 1 if graphed else 0,
-        "step_graph_failures": 0}
+        "step_graph_failures": 0,
+        "pool_banks": 1, "pool_fills": opened,
+        "step_live_rows": steps, "step_rows_run": WAVES * rows}
     tallies = node.window_tallies()
     for name, counts in recount.items():
         assert tallies["moe_rows"][name] == counts.tolist(), name
