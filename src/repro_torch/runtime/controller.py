@@ -492,7 +492,6 @@ class Controller:
                     knob_moves.append({"stage": i, "max_batch": mb,
                                        "coalesce_s": co})
 
-        staged = d.stages[0].replicas[0].staged
         reps = list(d.replicas)
         bounds = [0, *d.partition.cuts, len(d.graph.nodes)]
         gate_ok = (self.calibrator.ready
@@ -502,14 +501,14 @@ class Controller:
         if cfg.repartition and gate_ok:
             decision = decide_repartition(
                 self.calibrator.costs(), bounds, len(d.stages),
-                staged=staged, hysteresis=cfg.hysteresis,
+                hysteresis=cfg.hysteresis,
                 window=cfg.window, replicas=reps)
         scale_rec = None
         if decision is None and cfg.replica_scaling and gate_ok:
             # cuts can't fix the bottleneck (the DP held): the replica
             # dimension is the remaining lever
             scale_rec = decide_scale(
-                self.calibrator.costs(), bounds, reps, staged=staged,
+                self.calibrator.costs(), bounds, reps,
                 max_replicas=cfg.max_replicas,
                 up_ratio=cfg.scale_up_ratio,
                 down_ratio=cfg.scale_down_ratio)

@@ -228,7 +228,6 @@ class Dispatcher:
                  max_batch: int = 8,
                  admission_depth: int = 64,
                  queue_depth: int = 8,
-                 staged: bool = True,
                  client_quota: int | None = None,
                  shape_buckets: str = "exact",
                  max_batch_cap: int | None = None,
@@ -252,7 +251,7 @@ class Dispatcher:
         # the chain's span log, off until InferenceEngine.start_spans
         self.spans = SpanLog()
         self._defaults = dict(max_batch=max_batch, queue_depth=queue_depth,
-                              staged=staged, shape_buckets=shape_buckets,
+                              shape_buckets=shape_buckets,
                               max_batch_cap=max_batch_cap)
         # optional replica provider: (dispatcher, stage, replica) -> a
         # ComputeNode-shaped object, or None to fall back to the in-process
@@ -381,7 +380,6 @@ class Dispatcher:
             stage, self.codecs.data, replica=replica,
             queue_depth=d["queue_depth"],
             max_batch=spec.max_batch or d["max_batch"],
-            staged=d["staged"],
             shape_buckets=spec.shape_buckets or d["shape_buckets"],
             max_batch_cap=spec.max_batch_cap or d["max_batch_cap"],
             inbox=self._open_channel(spec.transport, d["queue_depth"]),

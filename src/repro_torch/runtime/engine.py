@@ -39,11 +39,9 @@ that oversubscription honestly to avoid tuning against a saturated lie.
 The report also reads, over the window, the CPU time of every thread the
 chain started (``thread_cpu_s``, by thread name) beside the whole
 process's, and the decode steps' waits in each queue (``step_wait_s``);
-each replica's entry splits its decode steps' time into phases and counts
-its steps by how they ran (``step_graph_replays``, ``step_eager_steps``,
-``step_graph_captures``, ``step_graph_failures``), its cache pool's banks
-and fills (``pool_banks``, ``pool_fills``) and its steps' live rows and
-rows run (``step_live_rows``, ``step_rows_run``).
+each replica's entry carries its decode counters over the window as the
+replica reads them out
+(:meth:`~repro_torch.runtime.node.ComputeNode.window_report`).
 ``start_spans`` / ``stop_spans`` record the chain's spans
 (:mod:`repro_torch.runtime.spans`), off otherwise.
 
@@ -119,7 +117,6 @@ class InferenceEngine:
                  max_batch: int = 8,
                  admission_depth: int = 64,
                  queue_depth: int = 8,
-                 staged: bool = True,
                  client_quota: int | None = None,
                  shape_buckets: str = "exact",
                  max_batch_cap: int | None = None,
@@ -145,7 +142,7 @@ class InferenceEngine:
         self.dispatcher = Dispatcher(graph, topology, codecs,
                                      link=self.link, max_batch=max_batch,
                                      admission_depth=admission_depth,
-                                     queue_depth=queue_depth, staged=staged,
+                                     queue_depth=queue_depth,
                                      client_quota=client_quota,
                                      shape_buckets=shape_buckets,
                                      max_batch_cap=max_batch_cap,
@@ -344,16 +341,9 @@ class InferenceEngine:
                     busy_dec = node.busy_decode_s
                     busy_cmp = node.busy_compute_s
                     busy_enc = node.busy_encode_s
-                    # a process-backed replica reports neither
-                    step = dict(getattr(node, "step_s", {}))
-                    counts = dict(getattr(node, "step_counts", {}))
-                    prefill = {k: getattr(node, k) for k in (
-                        "prefill_s", "prefill_tokens") if hasattr(node, k)}
-                    for q, w in getattr(node, "wait_s", {}).items():
-                        k = f"s{node.index}.{q}"
-                        waits[k] = waits.get(k, 0.0) + w
-                tallies = (node.window_tallies()
-                           if hasattr(node, "window_tallies") else {})
+                counters, node_waits = node.window_report()
+                for k, w in node_waits.items():
+                    waits[k] = waits.get(k, 0.0) + w
                 n_req_raw = sum(t.n for t in tr)
                 n_req = n_req_raw or 1
                 compute = sum(t.compute_s for t in tr) / n_req
@@ -363,14 +353,10 @@ class InferenceEngine:
                 chunks = max(1.0, np.ceil(payload / CHUNK_BYTES))
                 wire_s = self.link.latency_s * chunks \
                     + payload / self.link.bandwidth_bytes_per_s
-                # per-request service time: staged nodes overlap decode /
-                # compute / encode, so the pipelined per-replica bottleneck
-                # is the max stage, not the sum (paper: throughput =
-                # 1 / max_i service_i)
-                if node.staged:
-                    service = max(compute, ser, des, wire_s)
-                else:
-                    service = compute + ser + des + wire_s
+                # per-request service time: a replica overlaps decode /
+                # compute / encode, so its pipelined bottleneck is the max
+                # stage, not the sum (paper: throughput = 1 / max_i service_i)
+                service = max(compute, ser, des, wire_s)
                 energy = compute_energy_j(compute + ser + des, self.hw) \
                     + network_energy_j(payload, self.hw)
                 # replica-aware idle burn: a powered-on replica draws the
@@ -424,14 +410,7 @@ class InferenceEngine:
                     "queue_depth_max": max(depths) if depths else 0,
                     "batch_mean": (float(np.mean([t.n for t in tr])) if tr
                                    else 0.0),
-                    # window totals of the decode steps' phases, and of
-                    # the steps by how they ran
-                    **{f"step_{p}_s": v for p, v in step.items()},
-                    **counts,
-                    **prefill,
-                    # the decode steps' device counters over the window,
-                    # by layer (routed experts: moe_rows, moe_dropped)
-                    **tallies,
+                    **counters,
                 })
                 stage_service = max(stage_service, service)
                 total_payload += payload

@@ -41,13 +41,11 @@ Timings are recorded per batch (``BatchTrace``) and per stage
 can report the paper's metrics (compute, overhead, payload) plus the
 serving ones (per-stage utilization, queue depth, batch occupancy) from
 *real* execution — and so the codec/compute overlap is directly measurable.
-A decode step's time is split into its phases (``step_s``: stack, launch,
-sync, unstack), its steps are counted by how they ran (``step_counts``:
-replayed as a CUDA graph, or eagerly; :mod:`repro_torch.runtime.step_graph`),
-beside the cache pool's banks and fills and the live rows of the rows run,
-and the decode steps' time in the three queues is summed (``wait_s``), all
-over the window; with the dispatcher's span log on, the same readings become
-spans (:mod:`repro_torch.runtime.spans`).
+The decode counters over the window (a step's phases, its steps by how they
+ran, :mod:`repro_torch.runtime.step_graph`, the cache pool's fills, the
+steps' queue waits, the prefills) are one :class:`Window`, read out by
+:meth:`ComputeNode.window_report`; with the dispatcher's span log on, the
+same readings become spans (:mod:`repro_torch.runtime.spans`).
 """
 from __future__ import annotations
 
@@ -81,8 +79,7 @@ from repro_torch.runtime.wire import (_RETIRE, _STOP,  # noqa: F401
                                       K_CLOSE, K_OPEN, K_PLAIN, K_STEP,
                                       BatchEnvelope,
                                       ReconfigMarker, RowExtent, WireCodec,
-                                      WireRecord, slice_parts,
-                                      tree_unflatten_paths)
+                                      WireRecord, tree_unflatten_paths)
 
 
 @dataclasses.dataclass
@@ -137,6 +134,28 @@ _COUNTED = {REPLAY: ("step_graph_replays",),
 QUEUES = ("inbox", "to_compute", "to_encode")
 
 
+@dataclasses.dataclass
+class Window:
+    """A replica's decode counters over the measurement window: the decode
+    steps' phases (s), their counts (``STEP_COUNTS``) and their waits in
+    each queue (s times steps); the session opens' prefills (s, as their
+    spans, and prompt tokens); and the replica's device tallies as read at
+    the window's start.  ``ComputeNode.reset_stats`` replaces it whole and
+    ``ComputeNode.window_report`` reads it out, so a new counter is a field
+    here and an entry there."""
+
+    step_s: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(STEP_PHASES, 0.0))
+    step_counts: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(STEP_COUNTS, 0))
+    wait_s: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(QUEUES, 0.0))
+    prefill_s: float = 0.0
+    prefill_tokens: int = 0
+    tallies0: dict[tuple[str, str], torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+
+
 def _bucket_rows(n: int) -> int:
     """Next power of two >= n: bounds the batch shapes per signature."""
     p = 1
@@ -169,8 +188,7 @@ class ComputeNode:
 
     def __init__(self, index: int, data_codec: WireCodec,
                  queue_depth: int = 8, max_batch: int = 8,
-                 pad_batches: bool = True, staged: bool = True,
-                 stage_depth: int = 2, coalesce_s: float = 0.005,
+                 coalesce_s: float = 0.005,
                  shape_buckets: str = "exact",
                  max_batch_cap: int | None = None,
                  replica: int = 0,
@@ -186,8 +204,6 @@ class ComputeNode:
         # controller retunes them online from the measured codec/compute
         # stage-time ratio (plain attribute writes; each wave re-reads them)
         self.max_batch = max(1, max_batch)
-        self.pad_batches = pad_batches
-        self.staged = staged
         self.coalesce_s = coalesce_s
         # "pow2": near-miss trailing shapes merge into one apply via
         # bucketed pad-to-shape (opt-in: requires layers that preserve and
@@ -205,8 +221,9 @@ class ComputeNode:
             else InprocChannel(queue_depth)
         self.next_inbox: Channel | None = None
         self._egress_epoch = 0      # epoch stamp for outbound envelopes
-        self._to_compute: queue.Queue = queue.Queue(maxsize=max(1, stage_depth))
-        self._to_encode: queue.Queue = queue.Queue(maxsize=max(1, stage_depth))
+        # depth 2 between the stage threads: double buffering
+        self._to_compute: queue.Queue = queue.Queue(maxsize=2)
+        self._to_encode: queue.Queue = queue.Queue(maxsize=2)
         # an item popped for a wave/merge that would overflow max_batch is
         # stashed here and leads the next wave (queues can't push back)
         self._ingress_pending = None
@@ -226,21 +243,11 @@ class ComputeNode:
         self.busy_decode_s: float = 0.0
         self.busy_compute_s: float = 0.0
         self.busy_encode_s: float = 0.0
-        # window totals: a decode step's phases (s), and the decode steps'
-        # waits in each queue (s times steps)
-        self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
-        self.step_counts = dict.fromkeys(STEP_COUNTS, 0)
-        self.wait_s = dict.fromkeys(QUEUES, 0.0)
-        # window totals of the session opens' prefills: seconds (as their
-        # spans) and prompt tokens
-        self.prefill_s = 0.0
-        self.prefill_tokens = 0
+        self.window = Window()
         # device counters the decode steps' layers add into, by name and
         # layer (a routed-expert block's moe_rows and moe_dropped; see
-        # repro_torch.models.moe.held_experts_step), for the replica's
-        # life, and their readings at the window's start
+        # repro_torch.models.moe.held_experts_step), for the replica's life
         self.step_tallies: dict[str, dict[str, torch.Tensor]] = {}
-        self._tallies0: dict[tuple[str, str], torch.Tensor] = {}
         # the dispatcher's span log (its own, off, for a node built alone)
         self.spans = spans if spans is not None else SpanLog()
         s = f"defer.s{index}"
@@ -277,12 +284,6 @@ class ComputeNode:
         # inbox qsize 0 (credits returned on consume), so stall detection
         # needs this to see work trapped inside the pipeline.
         self._inflight_n = 0
-
-    @property
-    def busy_s(self) -> float:
-        """Total busy time summed over stages (can exceed wall time when
-        stages overlap — report per-stage utilization, not this / wall)."""
-        return self.busy_decode_s + self.busy_compute_s + self.busy_encode_s
 
     # -- configuration step (paper §III-B) ----------------------------------
     def configure(self, graph: LayerGraph, lo: int, hi: int,
@@ -458,15 +459,10 @@ class ComputeNode:
                     else self._graph[name].out_spec)
             base[name] = np.zeros(spec.shape, np.dtype(spec.dtype))
         base_rows = next(iter(base.values())).shape[0]
-        seen: set[int] = set()
         r = 1
         while r <= self.max_batch_cap:
-            target = (_bucket_rows(r * base_rows) if self.pad_batches
-                      else r * base_rows)
+            target = _bucket_rows(r * base_rows)
             r *= 2
-            if target in seen:
-                continue
-            seen.add(target)
             reps = -(-target // base_rows)
             boundary = {k: torch.from_numpy(
                 np.concatenate([v] * reps, axis=0)[:target] if reps > 1
@@ -482,19 +478,14 @@ class ComputeNode:
         if any(t.is_alive() for t in self._threads):
             return
         name = f"defer-s{self.index}r{self.replica}"
-        if self.staged:
-            self._threads = [
-                threading.Thread(target=self._ingress_loop, daemon=True,
-                                 name=f"{name}-ingress"),
-                threading.Thread(target=self._compute_loop, daemon=True,
-                                 name=f"{name}-compute"),
-                threading.Thread(target=self._exit_clearing(self._egress_loop),
-                                 daemon=True, name=f"{name}-egress"),
-            ]
-        else:
-            self._threads = [
-                threading.Thread(target=self._exit_clearing(self._legacy_loop),
-                                 daemon=True, name=f"{name}-legacy")]
+        self._threads = [
+            threading.Thread(target=self._ingress_loop, daemon=True,
+                             name=f"{name}-ingress"),
+            threading.Thread(target=self._compute_loop, daemon=True,
+                             name=f"{name}-compute"),
+            threading.Thread(target=self._exit_clearing(self._egress_loop),
+                             daemon=True, name=f"{name}-egress"),
+        ]
         for t in self._threads:
             t.start()
 
@@ -540,22 +531,29 @@ class ComputeNode:
             self.busy_decode_s = 0.0
             self.busy_compute_s = 0.0
             self.busy_encode_s = 0.0
-            self.step_s = dict.fromkeys(STEP_PHASES, 0.0)
-            self.step_counts = dict.fromkeys(STEP_COUNTS, 0)
-            self.wait_s = dict.fromkeys(QUEUES, 0.0)
-            self.prefill_s = 0.0
-            self.prefill_tokens = 0
-            self._tallies0 = {(c, k): t.clone()
-                              for c, by in list(self.step_tallies.items())
-                              for k, t in list(by.items())}
+            self.window = Window(tallies0={
+                (c, k): t.clone() for c, by in list(self.step_tallies.items())
+                for k, t in list(by.items())})
 
-    def window_tallies(self) -> dict[str, dict[str, Any]]:
-        """Each step counter's additions since the window's start, by
-        layer (a read from the device: never inside a window)."""
-        base = self._tallies0
-        return {c: {k: (t - base[c, k] if (c, k) in base else t).tolist()
-                    for k, t in list(by.items())}
-                for c, by in list(self.step_tallies.items())}
+    def window_report(self) -> tuple[dict[str, Any], dict[str, float]]:
+        """This replica's decode counters over the window (:class:`Window`)
+        as the engine report's entries for it: ``step_{phase}_s``, each of
+        ``STEP_COUNTS``, ``prefill_s``, ``prefill_tokens`` and each device
+        tally's additions since the window's start, by layer (a read from
+        the device: never inside a window); and its decode steps' waits by
+        queue, keyed ``s{stage}.{queue}``."""
+        with self._stats_lock:
+            w = self.window
+            entries = {**{f"step_{p}_s": v for p, v in w.step_s.items()},
+                       **w.step_counts, "prefill_s": w.prefill_s,
+                       "prefill_tokens": w.prefill_tokens}
+            waits = {f"s{self.index}.{q}": v for q, v in w.wait_s.items()}
+        base = w.tallies0
+        entries.update({
+            c: {k: (t - base[c, k] if (c, k) in base else t).tolist()
+                for k, t in list(by.items())}
+            for c, by in list(self.step_tallies.items())})
+        return entries, waits
 
     def _waited(self, queue_name: str, t_put: float, extents) -> float:
         """Close the wait of an item this replica's thread just took off
@@ -567,13 +565,6 @@ class ComputeNode:
         """Record one work span of this replica (log on only)."""
         self.spans.add(self._span_names[name], t0, t1, WORK, extents,
                        self.index, self.replica)
-
-    def _record_depth(self, depth: int) -> None:
-        """Record one merge's queue-depth sample.  Caller holds
-        ``_stats_lock``."""
-        self.queue_depths.append(depth)
-        self._depth_sum += depth
-        self._depth_count += 1
 
     def _record_trace(self, trace: BatchTrace) -> None:
         """Append a finished batch's trace and fold it into the running
@@ -729,7 +720,7 @@ class ComputeNode:
                            [e for env in wave for e in env.extents])
             with self._stats_lock:
                 self.busy_decode_s += des_busy
-                self.wait_s["inbox"] += waits
+                self.window.wait_s["inbox"] += waits
                 self._inflight_n += sum(len(e.extents) for e in wave)
             for env in relay:
                 self._to_compute.put(env)
@@ -790,10 +781,12 @@ class ComputeNode:
                     break
                 group.extend(nxt)
                 n_parts += add
+            depth = n_parts + self.inbox.qsize() + self._to_compute.qsize()
             with self._stats_lock:
-                self._record_depth(n_parts + self.inbox.qsize()
-                                   + self._to_compute.qsize())
-                self.wait_s["to_compute"] += waits
+                self.queue_depths.append(depth)
+                self._depth_sum += depth
+                self._depth_count += 1
+                self.window.wait_s["to_compute"] += waits
             t0 = time.perf_counter()
             out, failures = self._compute_group(group)
             t1 = time.perf_counter()
@@ -840,7 +833,6 @@ class ComputeNode:
                      ) -> tuple[dict[str, np.ndarray], float]:
         """Concatenate per-leaf segments along axis 0, zero-pad to ``target``
         rows, run the partition apply once, trim back to ``total``.
-        Shared by the staged compute stage and the legacy per-request path.
 
         The timed region ends with the device-to-host copy, which waits for
         the device: without it ``compute_s`` would record launch time only.
@@ -909,7 +901,7 @@ class ComputeNode:
             extents = [e for d in segs for e in d.extents]
             total = sum(next(iter(d.boundary.values())).shape[0]
                         for d in segs)
-            target = _bucket_rows(total) if self.pad_batches else total
+            target = _bucket_rows(total)
             padded_rows += target
             try:
                 res, apply_s = self._stack_apply(
@@ -998,8 +990,8 @@ class ComputeNode:
                     t1 = time.perf_counter()
                     compute_s += t1 - t0
                     with self._stats_lock:
-                        self.prefill_s += t1 - t0
-                        self.prefill_tokens += x.shape[1]
+                        self.window.prefill_s += t1 - t0
+                        self.window.prefill_tokens += x.shape[1]
                     if self.spans.on:
                         self._span("prefill", t0, t1, [e])
                 # a slot even when the slice holds no stateful layer
@@ -1061,10 +1053,10 @@ class ComputeNode:
                                x, self.device, self.step_tallies)
             self._banks.append(bank)
             with self._stats_lock:
-                self.step_counts["pool_banks"] += 1
+                self.window.step_counts["pool_banks"] += 1
         slot = bank.take(caches)
         with self._stats_lock:
-            self.step_counts["pool_fills"] += 1
+            self.window.step_counts["pool_fills"] += 1
         return slot
 
     def _step_wave(self, wave: list[tuple[RowExtent, np.ndarray, Slot]],
@@ -1101,12 +1093,13 @@ class ComputeNode:
         t4 = time.perf_counter()
         phases = tuple(zip(STEP_PHASES, (t0, t1, t2, t3), (t1, t2, t3, t4)))
         with self._stats_lock:
+            w = self.window
             for p, a, b in phases:
-                self.step_s[p] += b - a
+                w.step_s[p] += b - a
             for k in _COUNTED[how]:
-                self.step_counts[k] += 1
-            self.step_counts["step_live_rows"] += len(wave)
-            self.step_counts["step_rows_run"] += bank.rows
+                w.step_counts[k] += 1
+            w.step_counts["step_live_rows"] += len(wave)
+            w.step_counts["step_rows_run"] += bank.rows
         if self.spans.on:
             steps = [e for e, _, _ in wave]
             for p, a, b in phases:
@@ -1195,7 +1188,7 @@ class ComputeNode:
                 out_envs.append(env)
             with self._stats_lock:
                 self.busy_encode_s += enc_busy
-                self.wait_s["to_encode"] += waits
+                self.window.wait_s["to_encode"] += waits
                 self._record_trace(item.trace)
                 self._inflight_n -= sum(len(e.extents) for e in out_envs)
             if self.spans.on and first is not None:
@@ -1205,148 +1198,3 @@ class ComputeNode:
                 self._relay(env)
             if self.spans.on:
                 self._span("relay", t0, time.perf_counter(), extents_all)
-
-    # -- unstaged path (the PR 1 baseline, kept for A/B benchmarks) -----------
-    def _legacy_loop(self) -> None:
-        """Single worker thread: read -> decode -> apply -> encode PER
-        REQUEST -> relay, the pre-staged hot path.  Kept so
-        ``benchmarks/serve_load.py`` can measure the staged pipeline against
-        the same-codec PR 1 baseline in one process."""
-        while True:
-            try:
-                item = self.inbox.recv()
-            except ChannelClosed:
-                self.retiring = True     # dead inbound link: self-retire
-                return
-            if item is _RETIRE:
-                return                   # drain this replica only: no relay
-            if item is _STOP:
-                self._relay(_STOP)
-                return
-            if isinstance(item, ReconfigMarker):
-                self._apply_reconfig(item)
-                self._egress_epoch = item.epoch
-                self._relay(item)
-                continue
-            batch = [item]
-            saw_stop = False
-            retire = False
-            marker = None
-            while sum(e.n for e in batch) < self.max_batch:
-                try:
-                    nxt = self.inbox.recv_nowait()
-                except queue.Empty:
-                    break
-                except ChannelClosed:
-                    self.retiring = True
-                    retire = True        # flush this batch, then exit
-                    break
-                if nxt is _STOP:
-                    saw_stop = True
-                    break
-                if nxt is _RETIRE:
-                    retire = True
-                    break
-                if isinstance(nxt, ReconfigMarker):
-                    marker = nxt         # fence: swap after this batch
-                    break
-                batch.append(nxt)
-            with self._stats_lock:
-                self._record_depth(len(batch) + self.inbox.qsize())
-                self._inflight_n += sum(len(e.extents) for e in batch)
-            outs = self.process_batch(batch)
-            with self._stats_lock:
-                self._inflight_n -= sum(len(e.extents) for e in outs)
-            for env in outs:
-                env.epoch = self._egress_epoch
-                self._relay(env)
-            if marker is not None:
-                self._apply_reconfig(marker)
-                self._egress_epoch = marker.epoch
-                self._relay(marker)
-            if retire:
-                return
-            if saw_stop:
-                self._relay(_STOP)
-                return
-
-    def process_batch(self, envs: list[BatchEnvelope]) -> list[BatchEnvelope]:
-        """Decode, bucket-by-shape, pad, compute once, split, re-encode each
-        request separately (per-request wire, PR 1 semantics)."""
-        passthrough = [e for e in envs if e.error is not None]
-        work = [e for e in envs if e.error is None]
-        des_total = 0.0
-        samples: list[tuple[RowExtent, dict[str, np.ndarray]]] = []
-        failed: list[BatchEnvelope] = []
-        for env in work:
-            if any(ext.kind != K_PLAIN for ext in env.extents):
-                # session residency needs the staged pipeline's sticky
-                # decode path; the per-request legacy path has neither
-                failed.append(BatchEnvelope(
-                    env.extents, b"",
-                    error="decode sessions require the staged runtime "
-                          "(ComputeNode(staged=True))"))
-                continue
-            t0 = time.perf_counter()
-            try:
-                flat, _ = self.data_codec.decode_tree(env.blob)
-                flat = {k: np.asarray(v) for k, v in flat.items()}
-            except Exception:
-                failed.append(BatchEnvelope(env.extents, b"",
-                                            error=traceback.format_exc()))
-                continue
-            des_total += time.perf_counter() - t0
-            for ext, part in zip(env.extents, slice_parts(flat, env.extents)):
-                samples.append((ext, part))
-        with self._stats_lock:
-            self.busy_decode_s += des_total
-
-        buckets: dict[tuple, list[tuple[RowExtent, dict]]] = {}
-        for ext, boundary in samples:
-            buckets.setdefault(_signature(boundary), []).append((ext, boundary))
-
-        out_envs: list[BatchEnvelope] = list(passthrough) + failed
-        compute_total = 0.0
-        ser_total = 0.0
-        payload_total = 0
-        padded_rows = 0
-        encodes = 0
-        for bucket in buckets.values():
-            rows = [next(iter(b.values())).shape[0] for _, b in bucket]
-            total = sum(rows)
-            target = _bucket_rows(total) if self.pad_batches else total
-            padded_rows += target
-            try:
-                outs, apply_s = self._stack_apply(
-                    [b for _, b in bucket], total, target,
-                    [ext for ext, _ in bucket])
-                compute_total += apply_s
-            except Exception:
-                tb = traceback.format_exc()
-                out_envs.extend(BatchEnvelope([ext], b"", error=tb)
-                                for ext, _ in bucket)
-                continue
-            off = 0
-            for (ext, _), b_rows in zip(bucket, rows):
-                piece = {k: v[off:off + b_rows] for k, v in outs.items()}
-                off += b_rows
-                try:
-                    t0 = time.perf_counter()
-                    blob, rec = self.data_codec.encode_tree(
-                        piece, "data", request_id=ext.request_id,
-                        client_id=ext.client_id)
-                    ser_total += time.perf_counter() - t0
-                    payload_total += rec.wire_bytes
-                    encodes += 1
-                    out_envs.append(BatchEnvelope([ext], blob))
-                except Exception:
-                    out_envs.append(BatchEnvelope([ext], b"",
-                                                  error=traceback.format_exc()))
-
-        with self._stats_lock:
-            self.busy_compute_s += compute_total
-            self.busy_encode_s += ser_total
-            self._record_trace(BatchTrace(
-                self.index, len(samples), padded_rows, des_total,
-                compute_total, ser_total, payload_total, encodes=encodes))
-        return out_envs

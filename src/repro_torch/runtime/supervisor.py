@@ -104,9 +104,19 @@ class SupervisorConfig:
 class WorkerHandle:
     """Supervisor-side stand-in for one process-backed replica.
 
-    Duck-types :class:`~repro_torch.runtime.node.ComputeNode` for
+    Stands in for a :class:`~repro_torch.runtime.node.ComputeNode` in
     everything the dispatcher, routers, controller, and engine report
-    touch.  Its ``inbox`` is the send half of the worker's inbox channel
+    touch: its identity (``index``, ``replica``, ``device``, ``epoch``,
+    ``retiring``, ``_nodes``, ``config_records``), its channels, its knobs
+    (``max_batch``, ``max_batch_cap``, ``coalesce_s``), its window
+    telemetry (``traces``, ``queue_depths``, the ``busy_*_s`` under
+    ``_stats_lock``, ``snapshot()``, ``reset_stats()``: rebuilt from
+    heartbeats) and its lifecycle (``configure``, ``precompile``,
+    ``start``, ``retire``, ``join``, ``_threads``).  The heartbeats carry
+    none of the node's decode counters, so ``window_report()`` returns
+    none.
+
+    Its ``inbox`` is the send half of the worker's inbox channel
     (so router sends cross the socket), and a relay thread forwards the
     worker's egress stream into ``next_inbox`` — the one ComputeNode duty
     that must live supervisor-side, because the worker cannot reach the
@@ -127,7 +137,6 @@ class WorkerHandle:
     """
 
     lost_on_death = True
-    staged = True
 
     def __init__(self, sup: "Supervisor", stage: int, replica: int,
                  inbox, outbox, in_cid: int, out_cid: int,
@@ -362,7 +371,6 @@ class WorkerHandle:
             "max_batch": self._max_batch,
             "coalesce_s": self._coalesce_s,
             "max_batch_cap": self.max_batch_cap,
-            "staged": self.staged,
             "shape_buckets": self._spec.shape_buckets
             or self._sup._defaults.get("shape_buckets", "exact"),
             "host": host, "port": port,
@@ -436,6 +444,11 @@ class WorkerHandle:
             self.busy_decode_s = 0.0
             self.busy_compute_s = 0.0
             self.busy_encode_s = 0.0
+
+    def window_report(self) -> tuple[dict, dict]:
+        """No decode counters and no queue waits: the worker's heartbeats
+        carry none (see ``ComputeNode.window_report``)."""
+        return {}, {}
 
     def snapshot(self) -> dict:
         """Window telemetry (same keys as ComputeNode.snapshot), rebuilt

@@ -152,7 +152,7 @@ class Worker:
         try:
             node = ComputeNode(
                 p["stage"], codec, replica=p["replica"],
-                max_batch=p["max_batch"], staged=p.get("staged", True),
+                max_batch=p["max_batch"],
                 shape_buckets=p.get("shape_buckets", "exact"),
                 max_batch_cap=p.get("max_batch_cap"),
                 session_capacity=p.get("session_capacity", 64) or 64,

@@ -373,17 +373,6 @@ def test_eviction_thrash_recovered_by_reprefill(lm):
     assert outs == refs(lm, PROMPTS[:2], m)
 
 
-def test_legacy_unstaged_runtime_refuses_sessions(lm):
-    eng = build(lm, staged=False)
-    try:
-        eng.start()
-        with pytest.raises(SessionLost) as ei:
-            next(eng.generate(PROMPTS[0], 2, restart="never"))
-        assert "staged" in str(ei.value.__cause__)
-    finally:
-        eng.shutdown()
-
-
 def test_generate_bounds_the_prompt_by_the_kv_capacity(lm):
     eng = build(lm)
     try:

@@ -474,14 +474,14 @@ def test_staged_steps_equal_the_eager_step_and_count_the_routing(width):
         node.sessions.clear()
     graphed = dev.type == "cuda"
     assert len(node._banks) == 1 and node._banks[0].graphed is graphed
-    assert node.step_counts == {
+    assert node.window.step_counts == {
         "step_graph_replays": WAVES - 1 if graphed else 0,
         "step_eager_steps": 1 if graphed else WAVES,
         "step_graph_captures": 1 if graphed else 0,
         "step_graph_failures": 0,
         "pool_banks": 1, "pool_fills": opened,
         "step_live_rows": steps, "step_rows_run": WAVES * rows}
-    tallies = node.window_tallies()
+    tallies, _ = node.window_report()
     for name, counts in recount.items():
         assert tallies["moe_rows"][name] == counts.tolist(), name
         assert tallies["moe_dropped"][name] == 0, name

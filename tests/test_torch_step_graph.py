@@ -304,7 +304,7 @@ def test_staged_steps_equal_the_stacked_step_bit_for_bit(device, width):
                     assert torch.equal(old[row], new[row]), (w, row)
     finally:
         r.clear()
-    counts = node.step_counts
+    counts = node.window.step_counts
     graphed = device.type == "cuda"
     assert len(node._banks) == 1 and node._banks[0].graphed is graphed
     assert {k: counts[k] for k in STEP_COUNTS[:4]} == {
@@ -397,7 +397,7 @@ def test_a_released_slot_is_reused_and_overwritten_whole(device, caches,
             assert "SessionLost" in fails[0].error
     finally:
         r.clear()
-    assert r.node.step_counts["pool_banks"] == 1
+    assert r.node.window.step_counts["pool_banks"] == 1
 
 
 @pytest.mark.parametrize("caches", ["full", "ring"])
@@ -423,7 +423,7 @@ def test_a_bank_grows_past_its_rows_and_a_wave_spans_both(device, caches):
             r.assert_slot_is_ref(s)
     finally:
         r.clear()
-    counts = r.node.step_counts
+    counts = r.node.window.step_counts
     assert counts["pool_banks"] == 2
     assert counts["step_graph_replays"] + counts["step_eager_steps"] == 7
     assert counts["step_graph_captures"] == (2 if graphed else 0)
@@ -441,15 +441,16 @@ def test_the_pool_counters_count(device, caches):
     try:
         for s in ("a", "b", "c"):
             r.open(s)
-        assert [node.step_counts[k] for k in pool] == [1, 3, 0, 0]
+        assert [node.window.step_counts[k] for k in pool] == [1, 3, 0, 0]
         for wave in (["a", "b", "c"], ["b"], ["c", "a"]):
             r.step(wave)
-        assert [node.step_counts[k] for k in pool] == [1, 3, 6, 3 * r.rows]
+        assert [node.window.step_counts[k] for k in pool] \
+            == [1, 3, 6, 3 * r.rows]
         node.reset_stats()
         r.close("b")
         r.open("d")
         r.step(["d", "a"])
-        assert [node.step_counts[k] for k in pool] == [0, 1, 2, r.rows]
+        assert [node.window.step_counts[k] for k in pool] == [0, 1, 2, r.rows]
     finally:
         r.clear()
 
@@ -523,7 +524,7 @@ def test_make_apply_drops_the_staging(device):
     finally:
         r.clear()
     captures = 2 if device.type == "cuda" else 0
-    assert node.step_counts["step_graph_captures"] == captures
+    assert node.window.step_counts["step_graph_captures"] == captures
 
 
 # -- served through the chain -------------------------------------------------
@@ -649,14 +650,14 @@ def test_a_repartition_and_a_scaled_replica_capture_anew(lm_cpu, device):
         assert _serve(eng, jobs, 4) == want
         for n in _replicas(eng):
             assert len(n._banks) == 1 and n._banks[0] is not before[id(n)]
-            assert n.step_counts["step_graph_captures"] == (2 if graphed
-                                                            else 0)
+            assert n.window.step_counts["step_graph_captures"] == (
+                2 if graphed else 0)
         eng.scale(0, 2)
         assert _serve(eng, jobs, 4) == want
         fresh = [n for n in _replicas(eng) if id(n) not in before]
         assert len(fresh) == 1
-        assert fresh[0].step_counts["step_eager_steps"] >= 1
-        assert fresh[0].step_counts["step_graph_captures"] == (
+        assert fresh[0].window.step_counts["step_eager_steps"] >= 1
+        assert fresh[0].window.step_counts["step_graph_captures"] == (
             1 if graphed else 0)
         assert sum(n["step_graph_failures"]
                    for n in eng.report().per_node) == 0
@@ -708,3 +709,106 @@ def test_every_window_step_is_counted_once(lm_cpu, device):
     for stage in range(3):
         assert sum(n["pool_fills"] for n in per_node
                    if n["stage"] == stage) == len(jobs)
+
+
+# -- the report's window readout ---------------------------------------------
+
+# a replica's report entry, whatever it serves
+REPLICA_KEYS = {
+    "node", "stage", "replica", "compute_s", "serialize_s", "deserialize_s",
+    "wire_s", "service_s", "payload_bytes", "energy_j", "idle_energy_j",
+    "requests", "utilization", "util_decode", "util_compute", "util_encode",
+    "util_decode_raw", "util_compute_raw", "util_encode_raw",
+    "busy_decode_s", "busy_compute_s", "busy_encode_s", "max_batch",
+    "coalesce_s", "layers", "queue_depth_mean", "queue_depth_max",
+    "batch_mean"}
+# its decode counters over the window, which the benchmark's per-layer
+# metrics read by name (bench/metrics/)
+WINDOW_KEYS = {
+    "step_stack_s", "step_launch_s", "step_sync_s", "step_unstack_s",
+    "step_graph_replays", "step_eager_steps", "step_graph_captures",
+    "step_graph_failures", "pool_banks", "pool_fills", "step_live_rows",
+    "step_rows_run", "prefill_s", "prefill_tokens"}
+TALLIES = ("moe_rows", "moe_dropped")
+# the engine's step_wait_s over a 2-stage chain
+WAIT_KEYS = {"admission", "result", *(f"s{i}.{q}" for i in range(2) for q in
+                                      ("inbox", "to_compute", "to_encode"))}
+
+
+def _two_stage_chain(kind: str):
+    """A 2-stage chain of the dense graph or of the routed-experts one (a
+    routed-expert layer on each stage), configured on the CPU."""
+    graph = (tlm.decode_moe_lm_graph(use_kernel=True, **RING)
+             if kind == "experts"
+             else tlm.decode_lm_graph(use_kernel=True, **LM))
+    eng = InferenceEngine(graph, TopologySpec.chain(graph, 2), CODECS,
+                          device="cpu")
+    eng.configure(lm_params(graph))
+    return eng
+
+
+def _routed(kind: str, entry: dict) -> list[str]:
+    """The routed-expert layers a replica's report entry holds."""
+    return [n for n in entry["layers"]
+            if kind == "experts" and n.endswith("_mlp")]
+
+
+@pytest.mark.parametrize("kind", ["dense", "experts"])
+def test_a_replica_reports_every_window_counter_by_name(kind):
+    """After a few sessions each replica's report entry has exactly the
+    replica keys, the decode counters the benchmark reads and, where it
+    holds routed experts, their tallies by layer; the decode steps' waits
+    are the admission's, each stage's three queues' and the result's."""
+    eng = _two_stage_chain(kind)
+    jobs = [(p, 4) for p in PROMPTS[:3]]
+    try:
+        eng.start()
+        _serve(eng, jobs, 3)
+        rep = eng.report()
+    finally:
+        eng.shutdown()
+    assert set(rep.step_wait_s) == WAIT_KEYS
+    assert rep.step_wait_s["s1.inbox"] > 0
+    assert len(rep.per_node) == 2
+    for n in rep.per_node:
+        routed = _routed(kind, n)
+        assert bool(routed) == (kind == "experts")
+        assert set(n) == REPLICA_KEYS | WINDOW_KEYS | (
+            set(TALLIES) if routed else set())
+        for t in TALLIES if routed else ():
+            assert sorted(n[t]) == routed, t
+        assert n["step_launch_s"] > 0 and n["step_eager_steps"] > 0
+        assert n["prefill_tokens"] == sum(len(p) for p, _ in jobs)
+
+
+@pytest.mark.parametrize("kind", ["dense", "experts"])
+def test_reset_window_zeroes_every_window_counter(kind):
+    """``reset_window`` zeroes every decode counter of every replica, its
+    tallies and the decode steps' waits; a second window counts its own
+    sessions only: its steps, its prefills and the rows its steps routed
+    (each live row to ``top_k`` held experts), the tallies read against
+    the base the reset took."""
+    eng = _two_stage_chain(kind)
+    first = [(p, 5) for p in PROMPTS[:3]]
+    second = [(p, 3) for p in PROMPTS[3:5]]
+    try:
+        eng.start()
+        _serve(eng, first, 3)
+        eng.reset_window()
+        zero = eng.report()
+        _serve(eng, second, 2)
+        rep = eng.report()
+    finally:
+        eng.shutdown()
+    assert not any(zero.step_wait_s.values())
+    for n in zero.per_node:
+        assert {k: n[k] for k in WINDOW_KEYS} == dict.fromkeys(WINDOW_KEYS, 0)
+        for t in TALLIES:
+            assert not any(np.any(v) for v in n.get(t, {}).values()), t
+    for n in rep.per_node:
+        assert n["step_live_rows"] == sum(m - 1 for _, m in second)
+        assert n["prefill_tokens"] == sum(len(p) for p, _ in second)
+        for layer in _routed(kind, n):
+            assert sum(n["moe_rows"][layer]) \
+                == RING["top_k"] * n["step_live_rows"], layer
+            assert n["moe_dropped"][layer] == 0

@@ -171,12 +171,12 @@ def test_control_verbs_match_between_worker_and_supervisor():
 # off a replica (grep of node./r./m. in runtime/{dispatcher,router,engine,
 # controller}.py), plus what the router probes with getattr
 _NODE_SURFACE = (
-    "index", "replica", "inbox", "next_inbox", "retiring", "staged",
+    "index", "replica", "inbox", "next_inbox", "retiring",
     "max_batch", "max_batch_cap", "coalesce_s", "device", "traces",
     "queue_depths", "busy_decode_s", "busy_compute_s", "busy_encode_s",
     "config_records", "_stats_lock", "_threads", "_nodes", "epoch",
     "configure", "precompile", "start", "retire", "join", "reset_stats",
-    "snapshot")
+    "snapshot", "window_report")
 
 
 def test_worker_handle_covers_the_compute_node_surface():
