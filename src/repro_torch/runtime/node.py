@@ -43,9 +43,19 @@ serving ones (per-stage utilization, queue depth, batch occupancy) from
 *real* execution — and so the codec/compute overlap is directly measurable.
 The decode counters over the window (a step's phases, its steps by how they
 ran, :mod:`repro_torch.runtime.step_graph`, the cache pool's fills, the
-steps' queue waits, the prefills) are one :class:`Window`, read out by
-:meth:`ComputeNode.window_report`; with the dispatcher's span log on, the
-same readings become spans (:mod:`repro_torch.runtime.spans`).
+steps' queue waits, the prefills, the holds) are one :class:`Window`, read
+out by :meth:`ComputeNode.window_report`; with the dispatcher's span log
+on, the same readings become spans (:mod:`repro_torch.runtime.spans`).
+
+A wave of decode steps may HOLD before it runs: where a resident session
+of its bank is due (``StepStaging.due``: it stepped here with the wave's
+sessions, or before them, or just behind them, so its next step is on its
+way), the compute stage keeps taking arrivals into the wave until every
+due session has joined, the wave is full, a frame other than a step
+arrives, or the replica's recent step time (``StepTimes``) has passed.  A
+replicated stage splits the sessions that stepped together before it;
+the hold lets the next stage step them together again, so a step's fixed
+rows serve more sessions.
 """
 from __future__ import annotations
 
@@ -65,7 +75,8 @@ from repro_torch.device import get_device
 from repro_torch.runtime.session import SessionStore
 from repro_torch.runtime.spans import WORK, SpanLog, waited
 from repro_torch.runtime.step_graph import (CAPTURED, EAGER, FAILED, REPLAY,
-                                            Slot, StepStaging, signature)
+                                            Slot, StepStaging, StepTimes,
+                                            signature)
 from repro_torch.runtime.transport import Channel, ChannelClosed, InprocChannel
 # _STOP / _RETIRE live in wire.py so the byte framing can map them to
 # dedicated frame types (a socket transport must carry them too); they are
@@ -122,10 +133,12 @@ STEP_PHASES = ("stack", "launch", "sync", "unstack")
 # a replica's decode steps by how they ran: replayed as its CUDA graph, run
 # eagerly (captures included), graphs captured, captures that raised; its
 # cache pool's banks allocated and prefills copied into a slot; the live
-# rows and all rows its steps ran
+# rows and all rows its steps ran; the waves that held for due residents
+# and the steps that joined them while they held
 STEP_COUNTS = ("step_graph_replays", "step_eager_steps",
                "step_graph_captures", "step_graph_failures",
-               "pool_banks", "pool_fills", "step_live_rows", "step_rows_run")
+               "pool_banks", "pool_fills", "step_live_rows", "step_rows_run",
+               "step_holds", "step_hold_joins")
 _COUNTED = {REPLAY: ("step_graph_replays",),
             EAGER: ("step_eager_steps",),
             CAPTURED: ("step_eager_steps", "step_graph_captures"),
@@ -135,17 +148,29 @@ QUEUES = ("inbox", "to_compute", "to_encode")
 
 
 @dataclasses.dataclass
+class _Hold:
+    """A wave of decode steps held for the due residents of its banks
+    (``ComputeNode._hold``): from ``t0`` until ``deadline`` at most."""
+
+    t0: float
+    deadline: float
+    due: set                    # (bank, row) of the due slots not yet in
+    joins: int = 0              # steps taken into the wave while it held
+    timed_out: bool = False
+
+
+@dataclasses.dataclass
 class Window:
     """A replica's decode counters over the measurement window: the decode
-    steps' phases (s), their counts (``STEP_COUNTS``) and their waits in
-    each queue (s times steps); the session opens' prefills (s, as their
-    spans, and prompt tokens); and the replica's device tallies as read at
-    the window's start.  ``ComputeNode.reset_stats`` replaces it whole and
-    ``ComputeNode.window_report`` reads it out, so a new counter is a field
-    here and an entry there."""
+    steps' phases and the waves' holds (s), their counts (``STEP_COUNTS``)
+    and their waits in each queue (s times steps); the session opens'
+    prefills (s, as their spans, and prompt tokens); and the replica's
+    device tallies as read at the window's start.  ``ComputeNode.reset_stats``
+    replaces it whole and ``ComputeNode.window_report`` reads it out, so a
+    new counter is a field here and an entry there."""
 
     step_s: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(STEP_PHASES, 0.0))
+        default_factory=lambda: dict.fromkeys((*STEP_PHASES, "hold"), 0.0))
     step_counts: dict = dataclasses.field(
         default_factory=lambda: dict.fromkeys(STEP_COUNTS, 0))
     wait_s: dict = dataclasses.field(
@@ -253,7 +278,7 @@ class ComputeNode:
         s = f"defer.s{index}"
         self._span_names = {k: f"{s}.{k}" for k in (
             "decode", "wave", "compute", "prefill", "encode", "relay",
-            *(f"step.{p}" for p in STEP_PHASES))}
+            *(f"step.{p}" for p in (*STEP_PHASES, "hold")))}
         self._span_names.update({q: f"defer.wait.s{index}.{q}"
                                  for q in QUEUES})
         self.config_records: list[WireRecord] = []
@@ -275,6 +300,8 @@ class ComputeNode:
         # CUDA graph), one more when every slot is held; emptied by each
         # _make_apply; compute thread only
         self._banks: list[StepStaging] = []
+        # the pool's recent step times, which bound a wave's hold
+        self.step_times = StepTimes()
         self._is_tail = False
         self._threads: list[threading.Thread] = []
         self._stats_lock = threading.Lock()
@@ -402,6 +429,7 @@ class ComputeNode:
         # replay — the sessions and the pool go
         self.sessions.clear()
         self._banks = []
+        self.step_times = StepTimes()
         graph = self._graph
         if (graph is None or not graph.decode_capable or not nodes
                 or len(self._required) != 1 or len(exported) != 1):
@@ -537,7 +565,8 @@ class ComputeNode:
 
     def window_report(self) -> tuple[dict[str, Any], dict[str, float]]:
         """This replica's decode counters over the window (:class:`Window`)
-        as the engine report's entries for it: ``step_{phase}_s``, each of
+        as the engine report's entries for it: ``step_{phase}_s``,
+        ``step_hold_s`` (the waves' holds, wall s), each of
         ``STEP_COUNTS``, ``prefill_s``, ``prefill_tokens`` and each device
         tally's additions since the window's start, by layer (a read from
         the device: never inside a window); and its decode steps' waits by
@@ -755,15 +784,28 @@ class ComputeNode:
             waits = self._waited("to_compute", item[0].t_put,
                                  [e for d in item for e in d.extents])
             # continuous batching, second chance: merge any further decoded
-            # waves, up to max_batch requests, without waiting for arrivals
+            # waves, up to max_batch requests, that are already queued;
+            # then, where a wave of steps has due residents, hold for them
             group = list(item)
             n_parts = sum(len(d.extents) for d in group)
             saw_stop = None
+            hold = None
             while n_parts < self.max_batch:
                 try:
-                    nxt = self._to_compute.get_nowait()
+                    if hold is None:
+                        nxt = self._to_compute.get_nowait()
+                    else:
+                        # blocks: the stages' threads share the GIL
+                        nxt = self._to_compute.get(timeout=max(
+                            0.0, hold.deadline - time.perf_counter()))
                 except queue.Empty:
-                    break
+                    if hold is not None:
+                        hold.timed_out = True
+                        break
+                    hold = self._hold(group)
+                    if hold is None:
+                        break
+                    continue
                 if nxt is _STOP or nxt is _RETIRE:
                     saw_stop = nxt
                     break
@@ -781,12 +823,32 @@ class ComputeNode:
                     break
                 group.extend(nxt)
                 n_parts += add
+                if hold is not None:
+                    # a frame other than a step is served now
+                    slots = self._slots(nxt)
+                    if slots is None:
+                        break
+                    hold.joins += len(nxt)
+                    hold.due.difference_update(slots)
+                    if not hold.due:
+                        break
+            t_held = time.perf_counter()
+            if hold is not None and hold.timed_out:
+                for bank, row in hold.due:
+                    bank.late[row] = True
             depth = n_parts + self.inbox.qsize() + self._to_compute.qsize()
             with self._stats_lock:
                 self.queue_depths.append(depth)
                 self._depth_sum += depth
                 self._depth_count += 1
                 self.window.wait_s["to_compute"] += waits
+                if hold is not None:
+                    self.window.step_s["hold"] += t_held - hold.t0
+                    self.window.step_counts["step_holds"] += 1
+                    self.window.step_counts["step_hold_joins"] += hold.joins
+            if self.spans.on and hold is not None:
+                self._span("step.hold", hold.t0, t_held,
+                           [e for d in group for e in d.extents])
             t0 = time.perf_counter()
             out, failures = self._compute_group(group)
             t1 = time.perf_counter()
@@ -803,6 +865,36 @@ class ComputeNode:
             if saw_stop is not None:
                 self._to_encode.put(saw_stop)
                 return
+
+    def _slots(self, frames: list[_Decoded]) -> list[tuple] | None:
+        """The (bank, row) of the slot of each step among ``frames`` whose
+        session this replica holds; None where a frame is not a session's
+        step."""
+        if not all(len(d.extents) == 1 and d.extents[0].kind == K_STEP
+                   for d in frames):
+            return None
+        slots = [self.sessions.get(d.extents[0].session) for d in frames]
+        return [(s.bank, s.row) for s in slots if s is not None]
+
+    def _hold(self, group: list[_Decoded]) -> _Hold | None:
+        """A hold for a wave of ``group``, where it is all steps and some
+        bank of its sessions has due residents (``StepStaging.due``, with
+        the bound as its slack), bounded by the replica's recent step time;
+        None before the replica has stepped (no bound yet), or where
+        nothing is due (a lone resident never holds)."""
+        bound = self.step_times.bound()
+        slots = self._slots(group) if bound is not None else None
+        if not slots:
+            return None
+        rows: dict[StepStaging, list[int]] = {}
+        for bank, row in slots:
+            rows.setdefault(bank, []).append(row)
+        due = {(bank, r) for bank, rs in rows.items()
+               for r in bank.due(rs, bound)}
+        if not due:
+            return None
+        t0 = time.perf_counter()
+        return _Hold(t0, t0 + bound, due)
 
     def _pad_to_bucket(self, d: _Decoded) -> _Decoded:
         """Zero-pad a decoded segment's middle axes up to the pow2 bucket
@@ -1089,6 +1181,8 @@ class ComputeNode:
             return [], [BatchEnvelope([e], b"", error=tb)
                         for e, _, _ in wave], time.perf_counter() - t0
         t3 = time.perf_counter()
+        if how in (REPLAY, EAGER):
+            self.step_times.add(t3 - t0)
         outs = [([e], {out_name: y[s.row:s.row + 1]}) for e, _, s in wave]
         t4 = time.perf_counter()
         phases = tuple(zip(STEP_PHASES, (t0, t1, t2, t3), (t1, t2, t3, t4)))

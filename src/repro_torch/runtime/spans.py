@@ -16,7 +16,9 @@ The chain records, with ``i`` the stage index:
 
 * work: ``defer.submit``, ``defer.pump`` (one admission item sent to the
   head), ``defer.route.s{i}`` (one envelope routed), ``defer.s{i}.decode``
-  (a wave's codec decodes), ``defer.s{i}.wave`` (one merged wave computed),
+  (a wave's codec decodes), ``defer.s{i}.step.hold`` (a wave of decode
+  steps held for its bank's due residents, just before it is computed),
+  ``defer.s{i}.wave`` (one merged wave computed),
   inside it ``defer.s{i}.compute`` (a stacked apply of plain traffic),
   ``defer.s{i}.prefill`` (one session open, its copy to the host included)
   and a decode step's ``defer.s{i}.step.stack`` (caches stacked, tokens and
@@ -36,7 +38,8 @@ threads record none.
 Whether the log is on or off, the same readings feed the window totals of
 the engine's report: each replica's decode-step phases, its prefills'
 seconds and prompt tokens (``prefill_s``, ``prefill_tokens``: its
-``defer.s{i}.prefill`` spans), and the decode steps' waits in each queue
+``defer.s{i}.prefill`` spans), its waves' holds (``step_hold_s``: its
+``defer.s{i}.step.hold`` spans; ``step_holds``, ``step_hold_joins``), and the decode steps' waits in each queue
 (:func:`waited`).  A replica's routed-expert blocks count on the device,
 inside each step and so inside its CUDA graph, the live rows routed to
 each held expert (``moe_rows``, by layer) and the assignments to held

@@ -24,11 +24,21 @@ CUDA graph, and every later step replays it on the calling thread's stream.
 The capture's mode is thread-local, so the other stages' threads keep
 launching while it runs.  A capture that raises leaves the bank eager, as
 it always is on the CPU.
+
+A bank also keeps what its replica's compute stage needs to let the
+bank's resident sessions step together: when each row's session last
+stepped there (its open the first), and which rows a wave held for in
+vain.  :meth:`StepStaging.due` names the rows a wave should wait for, and
+:class:`StepTimes`, the replica's recent step times, bounds the wait
+(``ComputeNode._compute_loop``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import statistics
 import threading
+import time
 import traceback
 from typing import Any, Callable
 
@@ -45,6 +55,8 @@ REPLAY, EAGER, CAPTURED, FAILED = "replay", "eager", "captured", "failed"
 # one capture at a time in a process: a stage's replicas may reach their
 # first step together
 _CAPTURE_LOCK = threading.Lock()
+# the steps whose median wall time bounds a replica's holds
+STEP_TIMES = 16
 
 
 def signature(caches: Any, x: np.ndarray) -> tuple:
@@ -53,6 +65,23 @@ def signature(caches: Any, x: np.ndarray) -> tuple:
     return (tuple((path, tuple(t.shape[1:]), t.dtype)
                   for path, t in tree_flatten_with_path(caches)),
             x.shape[1:], x.dtype)
+
+
+class StepTimes:
+    """A replica's recent step times: the wall time of each of its last
+    ``STEP_TIMES`` steps that replayed or ran eagerly (a capture's is left
+    out), from its inputs staged to its logits on the host."""
+
+    def __init__(self):
+        self._s: collections.deque = collections.deque(maxlen=STEP_TIMES)
+
+    def add(self, s: float) -> None:
+        self._s.append(s)
+
+    def bound(self) -> float | None:
+        """Their median (s), which bounds a wave's hold; None before the
+        replica has stepped."""
+        return statistics.median(self._s) if self._s else None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -83,6 +112,11 @@ class StepStaging:
         self._apply = apply
         # rows no session holds, the lowest taken first
         self.free = list(range(rows - 1, -1, -1))
+        # when each row's session last stepped (its open the first;
+        # perf_counter), and the rows a hold timed out on, which no wave
+        # waits for again until they step
+        self.last = [0.0] * rows
+        self.late = [False] * rows
         # the step's inputs in one buffer, filled by one copy from its host
         # mirror: each row's x, then its position and its live flag (int32)
         xbytes = rows * x[0].nbytes
@@ -121,7 +155,21 @@ class StepStaging:
         with torch.inference_mode():
             for buf, t in zip(self._leaves, tree_leaves(caches)):
                 buf[slot.row].copy_(t[0])
+        self.last[slot.row] = time.perf_counter()
+        self.late[slot.row] = False
         return slot
+
+    def due(self, rows: list[int], slack: float) -> list[int]:
+        """The rows a wave of ``rows`` waits for: held by a session, not
+        in the wave and not late, whose last step came no later than
+        ``slack`` after the latest last step among the wave's.  Each
+        session steps here once a round, so such a session stepped here in
+        the wave's sessions' round or earlier, or at most ``slack`` behind
+        them, and its next step is on its way."""
+        t = max(self.last[r] for r in rows) + slack
+        free = set(self.free)
+        return [r for r in range(self.rows) if r not in free
+                and r not in rows and not self.late[r] and self.last[r] <= t]
 
     def stage(self, rows: list[int], x: np.ndarray, pos: list[int]) -> None:
         """The next step's inputs: ``x`` and ``pos`` of the sessions whose
@@ -133,6 +181,10 @@ class StepStaging:
                              f"{self._x_host.dtype}{list(self._x_host.shape[1:])}")
         self._x_host[rows] = x
         self._pos_host[rows] = pos
+        now = time.perf_counter()
+        for r in rows:
+            self.last[r] = now
+            self.late[r] = False
         self._live_host[:] = 0
         self._live_host[rows] = 1
         with torch.inference_mode():

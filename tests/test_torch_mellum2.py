@@ -480,7 +480,8 @@ def test_staged_steps_equal_the_eager_step_and_count_the_routing(width):
         "step_graph_captures": 1 if graphed else 0,
         "step_graph_failures": 0,
         "pool_banks": 1, "pool_fills": opened,
-        "step_live_rows": steps, "step_rows_run": WAVES * rows}
+        "step_live_rows": steps, "step_rows_run": WAVES * rows,
+        "step_holds": 0, "step_hold_joins": 0}
     tallies, _ = node.window_report()
     for name, counts in recount.items():
         assert tallies["moe_rows"][name] == counts.tolist(), name

@@ -159,18 +159,28 @@ def test_the_cnn_chain_records_each_named_span_with_its_stage(cnn, name):
                 or s.name.endswith(".prefill")]
 
 
+def _phase(s) -> bool:
+    """Whether ``s`` is a decode step's phase (a wave's hold, before the
+    wave, is not)."""
+    return ".step." in s.name and s.name.rsplit(".", 1)[1] in STEP_PHASES
+
+
 def test_a_step_nests_inside_its_wave_on_its_thread(decode):
     """Each decode step's four phases follow one another on the compute
-    thread, inside the wave span that thread was running."""
+    thread, inside the wave span that thread was running; a wave's hold
+    ends before the wave starts."""
     spans = decode["spans"]
     waves = [s for s in spans if s.name.endswith(".wave")]
-    threads = {s.thread for s in spans if ".step." in s.name}
+    threads = {s.thread for s in spans if _phase(s)}
     assert {int(re.match(r"defer-s(\d+)r", t)[1]) for t in threads} == \
         set(STAGES)
+    for h in (s for s in spans if s.name.endswith(".step.hold")):
+        assert h.thread.endswith("-compute")
+        assert any(w.thread == h.thread and h.end_ns <= w.start_ns
+                   for w in waves)
     for t in threads:
         assert t.endswith("-compute")
-        steps = sorted((s for s in spans
-                        if ".step." in s.name and s.thread == t),
+        steps = sorted((s for s in spans if _phase(s) and s.thread == t),
                        key=lambda s: s.start_ns)
         assert len(steps) % len(STEP_PHASES) == 0
         for k in range(0, len(steps), len(STEP_PHASES)):

@@ -728,7 +728,8 @@ WINDOW_KEYS = {
     "step_stack_s", "step_launch_s", "step_sync_s", "step_unstack_s",
     "step_graph_replays", "step_eager_steps", "step_graph_captures",
     "step_graph_failures", "pool_banks", "pool_fills", "step_live_rows",
-    "step_rows_run", "prefill_s", "prefill_tokens"}
+    "step_rows_run", "prefill_s", "prefill_tokens", "step_holds",
+    "step_hold_joins", "step_hold_s"}
 TALLIES = ("moe_rows", "moe_dropped")
 # the engine's step_wait_s over a 2-stage chain
 WAIT_KEYS = {"admission", "result", *(f"s{i}.{q}" for i in range(2) for q in
